@@ -11,17 +11,35 @@ Phases, one report line each, any failed check raising:
 4. K1       the corpus gather kernel at the training shape (64 ids with
             duplicates and out-of-range values) against its plain PyTorch
             version, and timed beside it and beside torch.index_select;
-5. check    the port's model on the card against the same model on the CPU,
+5. K2       the resize + normalize kernel at the feed's shape ((1024, 256,
+            256, 3) uint8 -> 64x64, scaled) and on a float32 non-square
+            case, against its plain version; timed beside it and beside
+            F.interpolate;
+6. K4       the LK refinement kernel on 8 pairs of 224x224 images with known
+            shifts, 200 corners, at each of the three pyramid levels,
+            against its plain version, all pairs in one launch and one pair
+            alone (the stabilizer's shape, also on a 192-px crop); the
+            median flow must recover the shifts; timed beside the plain
+            version;
+7. check    the port's model on the card against the same model on the CPU,
             float32 (TF32 off), at a small config: a sample and a train step;
-6. serve    sample-wall requests of 64 videos at the flagship width
+8. serve    sample-wall requests of 64 videos at the flagship width
             (bench.py's _flagship config, random weights from --seed);
-7. train    train_chunk_ids, K = 4 steps of B = 64 clips at the flagship
-            width, frames gathered by K1 from the resident corpus.
+9. train    train_chunk_ids, K = 4 steps of B = 64 clips at the flagship
+            width, frames gathered by K1 from the resident corpus;
+10. prep    4 synthetic 48-frame 360x480 source GIFs with a drifting,
+            growing textured patch -> read_gif -> process_video with the
+            TrackConfig defaults (flow_backend "auto", the device flow
+            with K4 in the stabilizer) and a detector that reports the
+            known box on every fifth frame -> 256x256 crop GIFs;
+11. feed    clip_batches_from_files over those crop GIFs (64 paths,
+            16 frames, K2 to 64x64 on the card), then one train_chunk of
+            K = 2 steps at the flagship width on the batches.
 
-The launch counts are zeroed just before each of serve and train and read
-just after. Then a `kernels` JSON line, the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
-result. --profile adds a torch.profiler table of one training step.
+The launch counts are zeroed just before each of serve, train, prep and feed
+and read just after. Then a `kernels` JSON line, the nvidia-smi line, and as
+the last line {"ok": true, "device": {...}}. Without CUDA it exits 2 and
+prints no result. --profile adds a torch.profiler table of one training step.
 """
 
 from __future__ import annotations
@@ -37,14 +55,26 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from gifgan_tpu_torch.core.config import DCGANConfig, TrainConfig, VidGANConfig
+from gifgan_tpu_torch.core.config import (DCGANConfig, TrackConfig,
+                                          TrainConfig, VidGANConfig)
 from gifgan_tpu_torch.data.device import DeviceCorpus
+from gifgan_tpu_torch.data.loader import clip_batches_from_files
 from gifgan_tpu_torch.data.synthetic import synthetic_clips
+from gifgan_tpu_torch.data.video import read_gif, write_gif
 from gifgan_tpu_torch.kernels import _build
+from gifgan_tpu_torch.kernels import flow as kflow
+from gifgan_tpu_torch.kernels.flow_refine import (bilinear_windows, lk_refine,
+                                                  lk_refine_plain)
 from gifgan_tpu_torch.kernels.gather import (gather_rows_scaled,
                                              gather_rows_scaled_plain)
+from gifgan_tpu_torch.kernels.resize import (interp_taps, resize_normalize,
+                                             resize_normalize_plain)
 from gifgan_tpu_torch.serve.sampler import gif_wall, vid_sample_fn
+from gifgan_tpu_torch.track.boxes import Detection
+from gifgan_tpu_torch.track.pipeline import process_video
+from gifgan_tpu_torch.track.stats import TrackStats
 from gifgan_tpu_torch.train import vid
 
 # H100 SXM data-sheet peaks (NVIDIA), for the bounds
@@ -52,12 +82,36 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 N_CLIPS, K_STEPS, BATCH, REQUESTS, WARM_CHUNKS = 4096, 4, 64, 3, 5
+# prep: source clips. 48 frames, not fewer: a detection on every fifth frame
+# must reach TrackConfig's default min_total_detections of 10.
+SRC_FILES, SRC_FRAMES, SRC_H, SRC_W, PATCH = 4, 48, 360, 480, 160
+# the "face" box the detector reports: the patch plus a black margin, so a
+# crop shows the whole patch and its centre can be read off the crop
+MARGIN, CENTRE_TOL_PX = 12, 4.0
+# feed: the crop GIFs repeated to one flagship batch per epoch
+FEED_PATHS, FEED_EPOCHS, FEED_STEPS, CLIP_LEN, CLIP_SIZE = 64, 3, 2, 16, 64
+DEVICE = "cuda"
 KERNELS = [{
     "name": "gather_rows_scaled",
     "route": "cuda",
     "source": "gifgan_tpu_torch/csrc/gather_rows_scaled.cu",
     "replaces": "gifgan_tpu/kernels/gather.py:84",
     "counter": gather_rows_scaled,
+    "path": "train",
+}, {
+    "name": "resize_normalize",
+    "route": "cuda",
+    "source": "gifgan_tpu_torch/csrc/resize_normalize.cu",
+    "replaces": "gifgan_tpu/kernels/resize.py:94",
+    "counter": resize_normalize,
+    "path": "feed",
+}, {
+    "name": "lk_refine",
+    "route": "cuda",
+    "source": "gifgan_tpu_torch/csrc/lk_refine.cu",
+    "replaces": "gifgan_tpu/kernels/flow_pallas.py:116",
+    "counter": lk_refine,
+    "path": "prep",
 }]
 
 
@@ -84,6 +138,10 @@ def check(cond, what):
 def reset_counts():
     for k in KERNELS:
         k["counter"].launches = 0
+
+
+def read_counts():
+    return {k["name"]: k["counter"].launches for k in KERNELS}
 
 
 def event_ms(fn, args_list, warmup=10, reps=200):
@@ -203,6 +261,219 @@ def phase_k1(corpus, seed):
                             "rows: the copy only, no widen or scale"}
 
 
+def phase_k2(seed):
+    """K2 at the feed's shape and on a float32 non-square case."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    n, h, w, c, oh, ow = BATCH * CLIP_LEN, 256, 256, 3, CLIP_SIZE, CLIP_SIZE
+    sets = [(torch.randint(0, 256, (n, h, w, c), device=DEVICE,
+                           dtype=torch.uint8, generator=g), oh, ow)
+            for _ in range(3)]           # 201 MB each: past the 50 MB L2
+    x = sets[0][0]
+    got = resize_normalize(x, oh, ow)
+    want = resize_normalize_plain(x, oh, ow)
+    torch.cuda.synchronize()
+    check(got.shape == (n, oh, ow, c) and got.dtype == torch.float32,
+          "K2 shape")
+    # Per output value: two 2-tap row sums and one 2-tap column sum of
+    # float32 products, then the scale; the kernel fuses each sum into one
+    # fma and the plain version's matmuls round each product. 4 ulp of the
+    # largest magnitude before the final subtraction: 2^-20 for y / 127.5 in
+    # [0, 2], 2^-13 for y in [0, 255].
+    tol = 2.0 ** -20
+    err = float((got - want).abs().max())
+    check(err <= tol, f"K2 within 4 ulp of the plain version: {err}")
+    check(float(got.min()) >= -1.0 and float(got.max()) <= 1.0,
+          "K2 output in [-1, 1]")
+
+    xf = torch.rand((5, 90, 120, 3), device=DEVICE, generator=g) * 255
+    got_f = resize_normalize(xf, 48, 100, normalize=False)
+    want_f = resize_normalize_plain(xf, 48, 100, normalize=False)
+    tol_f = 2.0 ** -13
+    err_f = float((got_f - want_f).abs().max())
+    check(got_f.shape == (5, 48, 100, 3) and err_f <= tol_f,
+          f"K2 float32 non-square case within 4 ulp of 255: {err_f}")
+
+    def library(frames_nchw):
+        return F.interpolate(frames_nchw, size=(oh, ow), mode="bilinear",
+                             align_corners=False, antialias=False)
+
+    # the library's input: the same frames as a float32 NCHW view (its
+    # memory stays channels-last); the widen is not timed
+    x_nchw = x.permute(0, 3, 1, 2).to(torch.float32)
+    lib = library(x_nchw).permute(0, 2, 3, 1) * (1.0 / 127.5) - 1.0
+    lib_diff = float((lib - got).abs().max())
+    check(lib_diff <= 1e-5, f"F.interpolate computes the same resize: "
+                            f"{lib_diff}")
+    del lib, want, want_f
+    ms = graph_ms(resize_normalize, sets)
+    plain_ms = graph_ms(resize_normalize_plain, sets, reps=2)
+    lib_ms = graph_ms(library, [(x_nchw,)])
+    ms2 = graph_ms(resize_normalize, sets)
+    # The bound counts the bytes the function needs: the source values that
+    # a tap with a non-zero weight reads (at 256 -> 64 rows and columns 4i+1
+    # and 4i+2 only, a quarter of the input), each once, and every output
+    # float once. Two asides, not the bound: whole source rows that hold a
+    # needed value (what 32-byte sectors make a kernel fetch), and every
+    # input byte.
+    out_bytes = n * oh * ow * c * 4
+    rows, cols = (int(np.unique(idx[wt != 0]).size) for idx, wt in
+                  (interp_taps(h, oh), interp_taps(w, ow)))
+    nbytes = n * rows * cols * c * x.element_size() + out_bytes
+    row_bytes = n * rows * w * c * x.element_size() + out_bytes
+    all_bytes = x.numel() * x.element_size() + out_bytes
+    bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                   6 * n * oh * ow * c / F32_FLOPS) * 1e3
+    kernel_ms = min(ms, ms2)
+    say("K2", shape=f"({n},{h},{w},{c})u8->({oh},{ow})", max_abs_err=err,
+        tolerance=tol, f32_case_err=err_f, f32_case_tolerance=tol_f,
+        kernel_ms=f"{ms:.5f},{ms2:.5f}", plain_ms=f"{plain_ms:.5f}",
+        library_ms_interpolate_f32_nchw=f"{lib_ms:.5f}",
+        library_max_abs_diff=lib_diff, bound_ms=f"{bound_ms:.5f}",
+        bound_bytes=nbytes, bound_share=f"{bound_ms / kernel_ms:.3f}",
+        aside_whole_rows_bytes=row_bytes,
+        aside_whole_rows_ms=f"{row_bytes / HBM_BYTES_PER_S * 1e3:.5f}",
+        aside_all_input_bytes=all_bytes,
+        aside_all_input_ms=f"{all_bytes / HBM_BYTES_PER_S * 1e3:.5f}")
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+            "library_call": "F.interpolate(bilinear, align_corners=False, "
+                            "antialias=False) on the float32 NCHW view: the "
+                            "resize only, no widen or scale"}
+
+
+def smooth_images(n, size, seed):
+    """n (size, size) float32 images in [0, 255] with texture at LK's scale:
+    uniform noise under a 5x5 box blur."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.rand((n, 1, size, size), device=DEVICE, generator=g) * 255
+    return F.avg_pool2d(x, 5, stride=1, padding=2)[:, 0].contiguous()
+
+
+def k4_levels(img0, img1, k, win, iters, levels, tol, timed):
+    """Walk the LK pyramid of the (B, H, W) pairs from the coarsest level
+    down, at each level holding lk_refine against lk_refine_plain on all B
+    pairs in one launch and on the first pair alone (the stabilizer's
+    shape: one pair per call). Returns the corners, their validity and one
+    record per level, with times where `timed`.
+
+    Gate, in pixels of the level: the block's shuffle reduction and the
+    plain version's sum add the 225 window products in another order (and
+    the kernel's bilinear blend is fused), and each of the 10 steps feeds
+    that difference back through the 2x2 solve. Corners whose system is
+    well conditioned (det > 1, all but flat windows) must agree to `tol`;
+    nearly singular ones amplify rounding without bound and are only
+    required to be finite."""
+    b, size = img0.shape[:2]
+    pts, valid = kflow.shi_tomasi_corners_batch(img0, max_corners=k)
+    check(int(valid.sum(1).min()) >= k // 2, f"K4 corners found at {size}")
+    pyr0, pyr1 = [img0], [img1]
+    for _ in range(kflow.pyramid_levels(size, size, win, levels) - 1):
+        pyr0.append(kflow._pyr_down_b(pyr0[-1]))
+        pyr1.append(kflow._pyr_down_b(pyr1[-1]))
+    check(len(pyr0) == levels, f"K4 {levels} pyramid levels at {size}")
+    flow = torch.zeros_like(pts)
+    per_level = []
+    for lvl in range(levels - 1, -1, -1):
+        scale = 2.0 ** lvl
+        p_lvl = (pts / scale).contiguous()
+        t0 = bilinear_windows(pyr0[lvl], p_lvl, win)
+        gx, gy, a11, a12, a22, det = kflow._lk_system(pyr0[lvl], p_lvl, win)
+        amat = torch.stack([a11, a12, a22, det], dim=-1)
+        args = (pyr1[lvl], t0, gx, gy, amat, p_lvl,
+                (flow / scale).contiguous(), win, iters)
+        solo = tuple(a[:1].contiguous() for a in args[:7]) + args[7:]
+        good = (det > 1.0) & valid
+        errs, outs = [], []
+        for what, a, ok in (("all pairs", args, good),
+                            ("one pair", solo, good[:1])):
+            got = lk_refine(*a)
+            want = lk_refine_plain(*a)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"K4 {size} px level {lvl} {what} finite")
+            errs.append(float((got - want).abs().max(-1).values[ok].max()))
+            outs.append(got)
+            check(errs[-1] <= tol, f"K4 {size} px level {lvl} {what} within "
+                                   f"{tol} px of the plain version: {errs}")
+        h, w = pyr1[lvl].shape[1:]
+        rec = {"level": lvl, "hw": h, "err": errs[0], "err_one_pair": errs[1]}
+        if timed:
+            # needed bytes: the three window stacks, the corners' tables and
+            # flows, and of img1 no more than the (win + 1)^2 window a step
+            # reads, nor more than the image
+            img_vals = min(b * h * w, b * k * iters * (win + 1) ** 2)
+            nbytes = 4 * (3 * b * k * win * win + img_vals + b * k * (4 + 6))
+            flops = b * k * iters * (win * win * 14 + 30)
+            one = args[:-1] + (1,)
+            rec.update({
+                "ms": graph_ms(lk_refine, [args] * 16),
+                "plain_ms": graph_ms(lk_refine_plain, [args] * 2, reps=2),
+                "ms_one_step": graph_ms(lk_refine, [one] * 16),
+                "ms_one_pair": graph_ms(lk_refine, [solo] * 16),
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                flops / F32_FLOPS) * 1e3,
+                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                             >= flops / F32_FLOPS else "operations")})
+        per_level.append(rec)
+        flow = outs[0] * scale
+    return pts, valid, per_level
+
+
+def phase_k4(seed):
+    """K4 on 8 pairs with known shifts, at the three pyramid levels, and on
+    one pair of the stabilizer's 192-px crop bucket."""
+    b, size, k, win, iters, levels, tol = 8, 224, 200, 15, 10, 3, 1e-2
+    shifts = [(3, -2), (-1, 4), (2, 2), (-3, -1), (0, 5), (4, 0), (-2, 3),
+              (1, -4)]
+    img0 = smooth_images(b, size, seed + 6)
+    img1 = torch.stack([torch.roll(i, (dy, dx), (0, 1))
+                        for i, (dx, dy) in zip(img0, shifts)])
+    pts, valid, per_level = k4_levels(img0, img1, k, win, iters, levels, tol,
+                                      timed=True)
+    # the stabilizer pads its crops to multiples of 32: the 192-px bucket
+    _, _, bucket = k4_levels(img0[:1, :192, :192].contiguous(),
+                             img1[:1, :192, :192].contiguous(), k, win, iters,
+                             levels, tol, timed=False)
+
+    # the port's own entry point, through the kernel, recovers the shifts
+    reset_counts()
+    new_pts, status = kflow.lk_flow_batch(img0, img1, pts, valid, win=win,
+                                          levels=levels, iters=iters)
+    check(lk_refine.launches == levels, "one K4 launch per level")
+    moved = (new_pts - pts).cpu().numpy()
+    status = status.cpu().numpy()
+    worst = 0.0
+    for i, shift in enumerate(shifts):
+        check(status[i].sum() >= k // 4, f"K4 pair {i} tracked")
+        med = np.median(moved[i][status[i]], axis=0)
+        worst = max(worst, float(np.abs(med - shift).max()))
+    check(worst <= 0.5, f"K4 median flow within 0.5 px of the shifts: "
+                        f"{worst}")
+    for r in per_level:
+        say("K4", level=r["level"], image=f"{b}x{r['hw']}x{r['hw']}",
+            corners=k, win=win, iters=iters, max_abs_err_px=r["err"],
+            one_pair_max_abs_err_px=r["err_one_pair"], tolerance_px=tol,
+            kernel_ms=f"{r['ms']:.5f}",
+            kernel_ms_one_step=f"{r['ms_one_step']:.5f}",
+            kernel_ms_one_pair=f"{r['ms_one_pair']:.5f}",
+            plain_ms=f"{r['plain_ms']:.5f}", bound_ms=f"{r['bound_ms']:.5f}",
+            bound_by=r["bound_by"])
+    for r in bucket:
+        say("K4", level=r["level"], image=f"1x{r['hw']}x{r['hw']}",
+            one_pair_max_abs_err_px=r["err_one_pair"], tolerance_px=tol)
+    say("K4", median_flow_err_px=f"{worst:.4f}")
+    top = per_level[-1]                  # level 0: the full-size images
+    errs = [r[key] for r in per_level + bucket
+            for key in ("err", "err_one_pair")]
+    return {"max_abs_err": max(errs), "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
+            "library_call": "none: no single PyTorch call computes the "
+                            "iterated LK solve",
+            "ms_by_level": {str(r["level"]): r["ms"] for r in per_level},
+            "ms_one_pair": top["ms_one_pair"]}
+
+
 def phase_check(seed):
     """The port on the card against the port on the CPU, float32."""
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -266,7 +537,7 @@ def phase_serve(ts, cfg):
             gif_wall(sample_fn, cfg.z_input_size, out, batch_size=BATCH,
                      num_batches=1, seed=r, start_index=BATCH * (r + 1))
             times.append((time.perf_counter() - t) * 1e3)
-        launches = {k["name"]: k["counter"].launches for k in KERNELS}
+        launches = read_counts()
         n_gifs = len([f for f in os.listdir(out) if f.endswith(".gif")])
     s = cfg.image_gan.output_size
     check(n_gifs == BATCH * (REQUESTS + 1), f"{n_gifs} GIFs written")
@@ -294,7 +565,7 @@ def phase_train(ts, cfg, tcfg, corpus, seed, profile):
                                 corpus.fold_sample_fn)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t) * 1e3 / K_STEPS
-    launches = {k["name"]: k["counter"].launches for k in KERNELS}
+    launches = read_counts()
     check(launches["gather_rows_scaled"] == K_STEPS,
           f"K1 launched once a step: {launches}")
     for k, v in m.items():
@@ -354,6 +625,151 @@ def phase_train(ts, cfg, tcfg, corpus, seed, profile):
     return launches
 
 
+def source_clip(seed):
+    """One synthetic source clip, (SRC_FRAMES, SRC_H, SRC_W, 3) uint8: a
+    textured grey patch of about PATCH px on black that drifts right and
+    down and grows 1 px every third frame. Returns the frames and each
+    frame's face box (x, y, side): the patch and MARGIN px around it."""
+    rng = np.random.default_rng(seed)
+    tex = smooth_images(1, PATCH, seed)[0]
+    tex = 60 + (tex - tex.min()) * (170 / float(tex.max() - tex.min()))
+    frames = np.zeros((SRC_FRAMES, SRC_H, SRC_W, 3), np.uint8)
+    x0, y0 = (int(v) for v in rng.integers(30, 70, 2))
+    boxes = []
+    for t in range(SRC_FRAMES):
+        side = PATCH + t // 3
+        x, y = x0 + 2 * t, y0 + t
+        patch = resize_normalize(tex[None, :, :, None].contiguous(), side,
+                                 side, normalize=False)[0, :, :, 0]
+        frames[t, y:y + side, x:x + side] = (
+            patch.round().clamp(0, 255).to(torch.uint8).cpu().numpy()[
+                :, :, None])
+        boxes.append((x - MARGIN, y - MARGIN, side + 2 * MARGIN))
+    return frames, boxes
+
+
+def patch_offset_px(crop, side):
+    """How far the patch's centre lies from the crop's centre, in source
+    pixels: the crop shows a stabilized box of about `side` source px, the
+    patch bright inside a black margin."""
+    bright = crop.max(axis=-1) > 30
+    ys, xs = np.nonzero(bright.any(axis=1))[0], np.nonzero(
+        bright.any(axis=0))[0]
+    size = crop.shape[0]
+    cy, cx = (ys[0] + ys[-1]) / 2.0, (xs[0] + xs[-1]) / 2.0
+    centre = (size - 1) / 2.0
+    return max(abs(cy - centre), abs(cx - centre)) * side / size
+
+
+def phase_prep(seed, workdir):
+    """Source GIFs -> read_gif -> process_video -> crop GIFs."""
+    cfg = TrackConfig()      # flow_backend "auto": the device flow, K4
+    sources = []
+    for i in range(SRC_FILES):
+        frames, boxes = source_clip(seed + 10 + i)
+        path = os.path.join(workdir, f"src{i}.gif")
+        write_gif(path, frames)
+        sources.append((path, boxes))
+    torch.cuda.synchronize()
+
+    reset_counts()
+    crop_paths, times, offsets, flow_calls = [], [], [], 0
+    stages = np.zeros(3)                 # ms in read_gif, track, write_gif
+    for i, (path, boxes) in enumerate(sources):
+        t = time.perf_counter()
+        frames = read_gif(path)
+        t_read = time.perf_counter()
+        check(frames.shape == (SRC_FRAMES, SRC_H, SRC_W, 3),
+              f"source {i} decoded: {frames.shape}")
+
+        def detector(frame, n, boxes=boxes):
+            if n % 5:
+                return []
+            x, y, side = boxes[n]
+            return [Detection(x, y, x + side, y + side, n)]
+
+        stats = TrackStats()
+        clips = process_video(frames, detector, cfg, stats)
+        t_track = time.perf_counter()
+        check(len(clips) == 1, f"source {i}: one clip, got {len(clips)} "
+                               f"({stats.counters})")
+        clip = clips[0]
+        check(clip.shape[0] >= cfg.min_frame_count
+              and clip.shape[1:] == (cfg.target_size, cfg.target_size, 3)
+              and clip.dtype == np.uint8, f"source {i} clip {clip.shape}")
+        out = os.path.join(workdir, f"src{i}_crop_0.gif")
+        write_gif(out, clip)
+        t_write = time.perf_counter()
+        times.append((t_write - t) * 1e3)
+        stages += np.array([t_read - t, t_track - t_read,
+                            t_write - t_track]) * 1e3 / SRC_FILES
+        crop_paths.append(out)
+        flow_calls += sum(stats.histograms["hst_num_feature_points"].values())
+        # the track starts at frame 0, so crop n shows frame n
+        offsets.append(max(patch_offset_px(clip[n], boxes[n][2])
+                           for n in range(clip.shape[0])))
+    launches = read_counts()
+    # every crop is at least PATCH px, padded to 160 or more: three levels
+    levels = kflow.pyramid_levels(PATCH, PATCH, cfg.lk_window, cfg.lk_levels)
+    check(flow_calls >= SRC_FILES * (cfg.min_frame_count - 1),
+          f"{flow_calls} flow calls")
+    check(launches["lk_refine"] == flow_calls * levels > 0,
+          f"K4 launched once per flow call and level: {launches}, "
+          f"{flow_calls} calls x {levels} levels")
+    check(max(offsets) <= CENTRE_TOL_PX,
+          f"stabilized boxes follow the patch within {CENTRE_TOL_PX} px: "
+          f"{offsets}")
+    say("prep", files=SRC_FILES, frames=SRC_FRAMES,
+        source=f"{SRC_H}x{SRC_W}", flow_calls=flow_calls, levels=levels,
+        ms_per_file=",".join(f"{t:.1f}" for t in times),
+        mean_ms_read_track_write=",".join(f"{t:.1f}" for t in stages),
+        centre_err_px=",".join(f"{o:.2f}" for o in offsets),
+        centre_tolerance_px=CENTRE_TOL_PX, launches=launches)
+    return crop_paths, launches
+
+
+def phase_feed(ts, cfg, tcfg, crop_paths, seed):
+    """Crop GIFs -> clip_batches_from_files (K2) -> train_chunk."""
+    paths = (crop_paths * FEED_PATHS)[:FEED_PATHS]
+    n = BATCH * CLIP_LEN
+    reset_counts()
+    batches, times = [], []
+    t = time.perf_counter()
+    for batch in clip_batches_from_files(paths, BATCH, CLIP_LEN, CLIP_SIZE,
+                                         epochs=FEED_EPOCHS, seed=seed):
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        batches.append(batch)
+        t = time.perf_counter()
+    launches = read_counts()
+    check(len(batches) == FEED_EPOCHS, f"{len(batches)} batches")
+    for b in batches:
+        check(b.shape == (n, CLIP_SIZE, CLIP_SIZE, 3) and b.is_cuda
+              and b.dtype == torch.float32, f"batch {tuple(b.shape)}")
+        check(float(b.min()) >= -1.0 and float(b.max()) <= 1.0
+              and float(b.std()) > 0.05, "batch in [-1, 1], not blank")
+    check(launches["resize_normalize"] == FEED_EPOCHS,
+          f"K2 launched once per batch: {launches}")
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    z = torch.rand(FEED_STEPS, BATCH, cfg.z_input_size, device=DEVICE,
+                   generator=g) * 2 - 1
+    t = time.perf_counter()
+    ts, m = vid.train_chunk(ts, torch.stack(batches[:FEED_STEPS]), z, g, cfg,
+                            tcfg)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / FEED_STEPS
+    for k, v in m.items():
+        check(v.shape == (FEED_STEPS,) and bool(torch.isfinite(v).all()),
+              f"metric {k} finite over the fed chunk")
+    say("feed", paths=len(paths), batch=BATCH, length=CLIP_LEN,
+        resize="256->64", ms_per_batch=",".join(f"{t:.1f}" for t in times),
+        train_ms_per_step=f"{step_ms:.2f}",
+        d_loss=",".join(f"{x:.5f}" for x in m["d_loss"].tolist()),
+        launches=launches)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -367,20 +783,29 @@ def main(argv=None) -> int:
     smi = phase_card()
     phase_build()
     corpus = phase_corpus(args.seed)
-    k1 = phase_k1(corpus, args.seed)
+    measured = {"gather_rows_scaled": phase_k1(corpus, args.seed),
+                "resize_normalize": phase_k2(args.seed),
+                "lk_refine": phase_k4(args.seed)}
     phase_check(args.seed)
 
     cfg, tcfg = flagship()
     ts = vid.init_train_state(torch.Generator().manual_seed(args.seed), cfg,
                               tcfg, device="cuda")
     phase_serve(ts, cfg)
-    launches = phase_train(ts, cfg, tcfg, corpus, args.seed, args.profile)
+    launches = {"train": phase_train(ts, cfg, tcfg, corpus, args.seed,
+                                     args.profile)}
+    with tempfile.TemporaryDirectory() as workdir:
+        crop_paths, launches["prep"] = phase_prep(args.seed, workdir)
+        launches["feed"] = phase_feed(ts, cfg, tcfg, crop_paths, args.seed)
 
     line = []
     for k in KERNELS:
-        row = {key: k[key] for key in ("name", "route", "source", "replaces")}
-        row["launches"] = launches[k["name"]]
-        row.update(k1)
+        row = {key: k[key] for key in ("name", "route", "source", "replaces",
+                                       "path")}
+        row["launches"] = launches[k["path"]][k["name"]]
+        row.update(measured[k["name"]])
+        check(row["launches"] > 0, f"{k['name']} launched on the "
+                                   f"{k['path']} path")
         line.append(row)
     check(all(math.isfinite(r["ms"]) for r in line), "kernel times")
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")

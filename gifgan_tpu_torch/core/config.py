@@ -163,7 +163,8 @@ class TrackConfig:
     lk_window: int = 15
     lk_levels: int = 3
     # Backend names are the JAX package's, kept so params.json files stay
-    # interchangeable; tracking is not ported yet.
+    # interchangeable. "auto" and "mxu" select the device flow kernels; the
+    # host OpenCV flow runs only when "cv2" is asked for by name.
     flow_backend: str = "auto"
     detector_backend: str = "auto"
 

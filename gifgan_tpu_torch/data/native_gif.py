@@ -1,9 +1,10 @@
-"""ctypes binding of the shared native GIF encoder (native/gifcodec.cpp).
+"""ctypes binding of the shared native GIF codec (native/gifcodec.cpp).
 
 The C++ in the repository's native/ directory is shared with the JAX
 package, not ported. Like gifgan_tpu/data/native_gif.py this builds it
-with `make -C native` at first use. Only encoding is bound here: the
-serving path writes GIFs and reads none.
+with `make -C native` at first use. Serving and the track pipeline encode
+with it; the clip feed and read_gif decode with it. There is no fallback
+to another imaging library: without the codec the functions raise.
 """
 
 from __future__ import annotations
@@ -35,6 +36,16 @@ def _load():
             except (OSError, subprocess.CalledProcessError):
                 return None
         lib = ctypes.CDLL(_LIB_PATH)
+        if not hasattr(lib, "gifgan_decode"):
+            raise RuntimeError(
+                f"{_LIB_PATH} has no gifgan_decode: it is a stale build; "
+                f"rebuild it with `make -C {_NATIVE_DIR} clean all`")
+        lib.gifgan_decode.restype = ctypes.c_int
+        lib.gifgan_decode.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int]
         lib.gifgan_encode.restype = ctypes.c_int
         lib.gifgan_encode.argtypes = [
             ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -49,6 +60,35 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def decode_gif_bytes(data: bytes, max_frames: int = 0) -> np.ndarray:
+    """GIF bytes -> (n, h, w, 3) uint8 RGB via the native decoder;
+    max_frames = 0 decodes every frame."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native gif codec unavailable (make -C native "
+                           "failed)")
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    w = ctypes.c_int()
+    h = ctypes.c_int()
+    n = ctypes.c_int()
+    rc = lib.gifgan_decode(data, len(data), ctypes.byref(out),
+                           ctypes.byref(w), ctypes.byref(h), ctypes.byref(n),
+                           max_frames)
+    if rc != 0:
+        raise ValueError(f"gif decode failed (rc={rc})")
+    try:
+        count = n.value * h.value * w.value * 3
+        arr = np.ctypeslib.as_array(out, shape=(count,)).copy()
+    finally:
+        lib.gifgan_free(out)
+    return arr.reshape(n.value, h.value, w.value, 3)
+
+
+def decode_gif(path: str, max_frames: int = 0) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_gif_bytes(f.read(), max_frames)
 
 
 def encode_gif_bytes(frames: np.ndarray, fps: float = 8.0) -> bytes:

@@ -1,0 +1,287 @@
+"""Face-track preprocessing pipeline: detect -> associate -> filter ->
+interpolate -> expand -> stabilize -> crop.
+
+The port of gifgan_tpu/track/pipeline.py: per-file error isolation with a
+consecutive-error abort threshold, params persisted to the output directory,
+the live dashboard rewritten periodically, and idempotent resume (files whose
+outputs exist are skipped).
+
+The video is decoded once into a frame array. Association and box geometry
+are host numpy; the stabilizer's corners and LK flow run on the card
+(kernels/flow.py, with the LK iteration as the CUDA kernel K4) unless the
+host cv2 backend is asked for by name; the crop + resize of all track frames is one
+batched device op (kernels/crop_resize.py).
+
+The detector is an argument for now: the cascade detectors, the batched
+`detect_clips` dispatch and the detector backend selection of the JAX
+package are not ported yet (ROADMAP.md queue 2, K3).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import time
+import traceback
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from gifgan_tpu_torch import resolve_device
+from gifgan_tpu_torch.core.config import TrackConfig
+from gifgan_tpu_torch.track import boxes as B
+from gifgan_tpu_torch.track import stabilize as S
+from gifgan_tpu_torch.track.stats import TrackStats
+
+
+def crop_and_resize_tracks(frames: np.ndarray, tracks: List[B.Track],
+                           target: int, device=None) -> List[np.ndarray]:
+    """Crop every detection's box and resize to (target, target): all crops
+    of all tracks in one device program, whatever the per-box sizes
+    (kernels.crop_resize)."""
+    from gifgan_tpu_torch.kernels.crop_resize import crop_resize_bilinear
+
+    if not tracks:
+        return []
+    device = resolve_device(device)
+    all_boxes, all_fidx, lengths = [], [], []
+    for track in tracks:
+        for d in track:
+            all_boxes.append((d.y1, d.x1, d.y2, d.x2))
+            all_fidx.append(d.frame_number)
+        lengths.append(len(track))
+    crops = crop_resize_bilinear(
+        torch.as_tensor(frames).to(device),
+        torch.tensor(all_fidx, dtype=torch.int32, device=device),
+        torch.tensor(all_boxes, dtype=torch.float32, device=device), target)
+    # clip and truncate (no rounding), as the JAX package does
+    crops = crops.clamp(0, 255).to(torch.uint8).cpu().numpy()
+    out, pos = [], 0
+    for ln in lengths:
+        out.append(crops[pos:pos + ln])
+        pos += ln
+    return out
+
+
+def _flow_backend(cfg: TrackConfig, device) -> Callable:
+    """cfg.flow_backend -> a (prev_crop, crop) flow function: "auto" and
+    "mxu" give the device kernels on `device` (the card unless the caller
+    names another), whatever else is installed; only "cv2", asked for by
+    name, gives OpenCV on the host."""
+    choice = cfg.flow_backend
+    if choice in ("auto", "mxu"):
+        from gifgan_tpu_torch.kernels.flow import mxu_flow_backend
+
+        device = resolve_device(device)
+        return lambda a, b: mxu_flow_backend(
+            a, b, cfg.max_corners, cfg.corner_quality,
+            cfg.corner_min_distance, win_size=cfg.lk_window,
+            max_level=cfg.lk_levels, device=device)
+    if choice == "cv2":
+        return lambda a, b: S.cv2_flow_backend(
+            a, b, cfg.max_corners, cfg.corner_quality,
+            cfg.corner_min_distance, win_size=cfg.lk_window,
+            max_level=cfg.lk_levels)
+    if choice == "jax":
+        raise NotImplementedError(
+            'flow_backend="jax" (gifgan_tpu/track/flow_jax.py) is not '
+            'ported yet (ROADMAP.md queue 1 item 12); use "mxu" or "cv2"')
+    raise ValueError(f"unknown flow_backend {choice!r}")
+
+
+def process_video(frames: np.ndarray, detector: Callable,
+                  cfg: TrackConfig, stats: Optional[TrackStats] = None,
+                  per_frame: Optional[List[list]] = None,
+                  device=None) -> List[np.ndarray]:
+    """frames: (T, H, W, C) uint8 RGB. Returns a list of stabilized face
+    clips (each (t, target, target, C) uint8).
+
+    detector(frame, i) -> list of Detection, or an object with
+    detect_video(frames). per_frame: precomputed per-frame Detection lists;
+    skips stage 1."""
+    stats = stats if stats is not None else TrackStats()
+    t, height, width = frames.shape[:3]
+    frame_size = (width, height)
+
+    # 1. detection: whole-clip when the detector supports it, else per frame
+    if per_frame is None:
+        if detector is None:
+            raise NotImplementedError(
+                "no detector given: the cascade detectors are not ported "
+                "yet (ROADMAP.md queue 2, K3); pass detector=")
+        if hasattr(detector, "detect_video"):
+            per_frame = detector.detect_video(frames)
+        else:
+            per_frame = [detector(frames[i], i) for i in range(t)]
+    for dets in per_frame:
+        stats.cnt_total_detections += len(dets)
+
+    # 2-3. association + validity filtering
+    tracks = B.associate_detections(per_frame, cfg.min_jaccard, cfg.max_skip,
+                                    stats=stats)
+    stats.cnt_initial_tracks += len(tracks)
+    for tr in tracks:
+        stats.observe_track(len(tr), [d.height for d in tr],
+                            [d.width for d in tr])
+    tracks, _ = B.discard_invalid_tracks(
+        tracks, cfg.min_frame_count, cfg.min_total_detections, stats=stats)
+
+    # 4-5. interpolation + aspect expansion
+    tracks = B.interpolate_missing_frames(tracks)
+    tracks, _ = B.expand_bounding_boxes(
+        tracks, frame_size, cfg.target_size, cfg.target_size, stats=stats)
+
+    # 6. stabilization over grayscale frames (float32 weights, truncated)
+    gray = (np.dot(frames[..., :3].astype(np.float32),
+                   [0.299, 0.587, 0.114]).astype(np.uint8)
+            if frames.shape[-1] == 3 else frames[..., 0])
+    stable = S.stabilize_tracks(
+        list(gray), tracks, frame_size, cfg.min_frame_count,
+        target_aspect=1.0, flow_backend=_flow_backend(cfg, device),
+        stats=stats)
+    stable = [s for s in stable if s is not None]
+
+    stats.cnt_detections_kept += sum(
+        1 for tr in stable for d in tr if not d.interpolated)
+    stats.cnt_detections_written += sum(len(tr) for tr in stable)
+    stats.observe_final(len(stable), [len(tr) for tr in stable])
+
+    # 7. crop + batched device resize
+    return crop_and_resize_tracks(frames, stable, cfg.target_size, device)
+
+
+def _cv2_decode(path: str, max_frames: int) -> Optional[np.ndarray]:
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("cv2 unavailable") from e
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while cap.isOpened() and len(frames) < max_frames:
+        ret, im = cap.read()
+        if not ret:
+            break
+        frames.append(cv2.cvtColor(im, cv2.COLOR_BGR2RGB))
+    cap.release()
+    return np.stack(frames) if frames else None
+
+
+def run_directory(input_dir: str, output_dir: str, cfg: TrackConfig,
+                  detector: Callable = None,
+                  decode_fn: Callable = None,
+                  max_consecutive_errors: int = 10,
+                  dashboard_every_s: float = 15.0,
+                  resume: bool = True,
+                  workers: int = 1,
+                  device=None) -> TrackStats:
+    """Process every video in a directory with error isolation, dashboard
+    refresh, params persistence, and idempotent resume.
+
+    workers > 1 runs files concurrently on a thread pool (decode releases
+    the GIL in its C++ loops); per-file stats are accumulated locally and
+    merged under a lock, so the combined output equals a sequential run up
+    to file ordering.
+
+    detector=None raises: building a detector from a cascade file, and the
+    batched detect_clips dispatch, wait for the cascade port (ROADMAP.md
+    queue 2, K3)."""
+    if detector is None:
+        raise NotImplementedError(
+            "run_directory needs detector=: the cascade detectors and the "
+            "detector backend selection are not ported yet (ROADMAP.md "
+            "queue 2, K3)")
+    device = resolve_device(device)
+    os.makedirs(output_dir, exist_ok=True)
+    if decode_fn is None:
+        def decode_fn(path):
+            return _cv2_decode(path, cfg.max_frames)
+
+    stats = TrackStats()
+    params = dataclasses.asdict(cfg)
+    files = sorted(f for f in os.listdir(input_dir)
+                   if f.endswith((".mp4", ".avi", ".gif")))
+    stats.total_files = len(files)
+
+    todo = []
+    for name in files:
+        base = os.path.splitext(name)[0]
+        if resume and any(f.startswith(base + "_crop")
+                          for f in os.listdir(output_dir)):
+            stats.cnt_files_processed += 1
+        else:
+            todo.append(name)
+
+    def process_one(name):
+        """Decode + track + write one file with a local stats object.
+        Returns (local_stats, ok, seconds)."""
+        from gifgan_tpu_torch.data.video import encode_mp4
+
+        local = TrackStats()
+        base = os.path.splitext(name)[0]
+        t0 = time.time()
+        try:
+            frames = decode_fn(os.path.join(input_dir, name))
+            if frames is None:
+                raise RuntimeError("decode failed")
+            clips = process_video(frames, detector, cfg, local,
+                                  device=device)
+            for i, clip in enumerate(clips):
+                encode_mp4(os.path.join(output_dir,
+                                        f"{base}_crop_{i}.mp4"), clip)
+            local.cnt_files_processed += 1
+            return local, True, time.time() - t0
+        except Exception:
+            local.cnt_files_errored += 1
+            traceback.print_exc()
+            return local, False, time.time() - t0
+
+    lock = threading.Lock()
+    consecutive_errors = 0
+    last_dash = 0.0
+    abort = False
+
+    def consume(result):
+        nonlocal consecutive_errors, last_dash, abort
+        local, ok, seconds = result
+        with lock:
+            stats.update(local)
+            stats.observe_file_time(seconds)
+            consecutive_errors = 0 if ok else consecutive_errors + 1
+            if consecutive_errors >= max_consecutive_errors:
+                print(f"aborting: {consecutive_errors} consecutive errors")
+                abort = True
+            if time.time() - last_dash > dashboard_every_s:
+                stats.write(output_dir, params)
+                last_dash = time.time()
+
+    if workers <= 1:
+        for name in todo:
+            consume(process_one(name))
+            if abort:
+                break
+    else:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            pending = []
+            for name in todo:
+                pending.append(pool.submit(process_one, name))
+                if len(pending) >= 2 * workers:
+                    consume(pending.pop(0).result())
+                    if abort:
+                        break
+            while pending and not abort:
+                consume(pending.pop(0).result())
+            # on abort the in-flight files still finish (the pool shutdown
+            # waits for them and their crops land on disk): fold their
+            # stats in too so stats agree with output_dir contents
+            for fut in pending:
+                local, ok, seconds = fut.result()
+                with lock:
+                    stats.update(local)
+                    stats.observe_file_time(seconds)
+
+    stats.write(output_dir, params)
+    return stats

@@ -32,16 +32,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 20, out.stdout
+    assert int(n) >= 33, out.stdout
     assert bad == "[]", bad
 
 
 def _entry_points():
     from gifgan_tpu_torch import resolve_device
-    from gifgan_tpu_torch.core.config import TrainConfig, VidGANConfig
+    from gifgan_tpu_torch.core.config import (TrackConfig, TrainConfig,
+                                              VidGANConfig)
     from gifgan_tpu_torch.core.interop import from_jax_flat
+    from gifgan_tpu_torch.data import loader, video
     from gifgan_tpu_torch.data.device import DeviceCorpus
+    from gifgan_tpu_torch.kernels import flow
+    from gifgan_tpu_torch.track import pipeline
+    from gifgan_tpu_torch.track.boxes import Detection
     from gifgan_tpu_torch.train import vid
+
+    frames = np.zeros((4, 48, 48, 3), np.uint8)
+    track = [Detection(8, 8, 40, 40, i) for i in range(4)]
 
     return {
         "resolve_device": lambda: resolve_device(),
@@ -51,6 +59,19 @@ def _entry_points():
         "DeviceCorpus": lambda: DeviceCorpus(np.zeros((2, 8), np.uint8)),
         "from_jax_flat": lambda: from_jax_flat({"a/b": np.zeros(2)}),
         "load_vid_train_state": lambda: vid.load_vid_train_state("/none"),
+        "clip_batches_from_files": lambda: next(
+            loader.clip_batches_from_files(["/none.gif"], 1, 2, 8)),
+        "resize_u8": lambda: video.resize_u8(frames, 8),
+        "flow_pairs": lambda: flow.flow_pairs(frames[:1, ..., 0],
+                                              frames[:1, ..., 0]),
+        "process_video": lambda: pipeline.process_video(
+            frames, lambda f, i: [], TrackConfig(flow_backend="mxu")),
+        "process_video_default_config": lambda: pipeline.process_video(
+            frames, lambda f, i: [], TrackConfig()),
+        "crop_and_resize_tracks": lambda: pipeline.crop_and_resize_tracks(
+            frames, [track], 8),
+        "run_directory": lambda: pipeline.run_directory(
+            "/none", "/none", TrackConfig(), detector=lambda f, i: []),
     }
 
 
@@ -59,3 +80,20 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points()[name]()
+
+
+def test_kernel_wrappers_take_tensors_only():
+    """resize_normalize and lk_refine have no device argument: the tensor
+    they are given decides (CPU -> plain version, CUDA -> kernel). A numpy
+    array, which lies on no device, is refused, not run on the CPU."""
+    from gifgan_tpu_torch.kernels.flow_refine import lk_refine
+    from gifgan_tpu_torch.kernels.resize import resize_normalize
+
+    with pytest.raises(ValueError, match="torch.Tensor"):
+        resize_normalize(np.zeros((1, 8, 8, 3), np.uint8), 4, 4)
+    z = np.zeros((1, 2, 3, 3), np.float32)
+    with pytest.raises(ValueError, match="torch.Tensor"):
+        lk_refine(np.zeros((1, 8, 8), np.float32), z, z, z,
+                  np.zeros((1, 2, 4), np.float32),
+                  np.zeros((1, 2, 2), np.float32),
+                  np.zeros((1, 2, 2), np.float32), win=3)
