@@ -15,42 +15,61 @@ Phases, one report line each, any failed check raising:
             256, 3) uint8 -> 64x64, scaled) and on a float32 non-square
             case, against its plain version; timed beside it and beside
             F.interpolate;
-6. K4       the LK refinement kernel on 8 pairs of 224x224 images with known
+6. K3       the cascade stage kernel with a seeded cascade of alt2's shape
+            (253 trees in its first 10 stages) on the packed pyramid
+            canvases of a 16x256x256 clip with planted glyphs (float32) and
+            of 360x480 frames (float64), against its plain version, every
+            byte of the mask; timed beside it, with all 20 stages too, and
+            the mean number of trees a window sees;
+7. K4       the LK refinement kernel on 8 pairs of 224x224 images with known
             shifts, 200 corners, at each of the three pyramid levels,
             against its plain version, all pairs in one launch and one pair
             alone (the stabilizer's shape, also on a 192-px crop); the
             median flow must recover the shifts; timed beside the plain
             version;
-7. check    the port's model on the card against the same model on the CPU,
+8. check    the port's model on the card against the same model on the CPU,
             float32 (TF32 off), at a small config: a sample and a train step;
-8. serve    sample-wall requests of 64 videos at the flagship width
+9. serve    sample-wall requests of 64 videos at the flagship width
             (bench.py's _flagship config, random weights from --seed);
-9. train    train_chunk_ids, K = 4 steps of B = 64 clips at the flagship
+10. train   train_chunk_ids, K = 4 steps of B = 64 clips at the flagship
             width, frames gathered by K1 from the resident corpus;
-10. prep    4 synthetic 48-frame 360x480 source GIFs with a drifting,
-            growing textured patch -> read_gif -> process_video with the
+11. prep    2 synthetic 48-frame 360x480 source GIFs with a drifting,
+            growing glyph -> read_gif -> process_video with the
             TrackConfig defaults (flow_backend "auto", the device flow
             with K4 in the stabilizer) and a detector that reports the
             known box on every fifth frame -> 256x256 crop GIFs;
-11. feed    clip_batches_from_files over those crop GIFs (64 paths,
-            16 frames, K2 to 64x64 on the card), then one train_chunk of
-            K = 2 steps at the flagship width on the batches.
+12. detect  DeviceHaarDetector.detect_clips (K3) on 8 clips of mixed sizes
+            around 128 px and around 256 px against NativeHaarDetector on
+            the same frames: primary boxes agree, planted glyphs are found,
+            noise frames give nothing; ms per clip for both;
+13. track   the track entry point: run_directory over 4 such source GIFs
+            with the cascade file and no injected detector (backend "auto":
+            the device detector, batched, workers=2 so the composed
+            dispatcher runs) -> crop GIFs; no file may fail, every file
+            gives a crop that follows the glyph, K3 and K4 both launch;
+14. feed    clip_batches_from_files over the track phase's crop GIFs (64
+            paths, 16 frames, K2 to 64x64 on the card), then one
+            train_chunk of K = 2 steps at the flagship width on the batches.
 
-The launch counts are zeroed just before each of serve, train, prep and feed
-and read just after. Then a `kernels` JSON line, the nvidia-smi line, and as
-the last line {"ok": true, "device": {...}}. Without CUDA it exits 2 and
-prints no result. --profile adds a torch.profiler table of one training step.
+The launch counts are zeroed just before each of serve, train, prep, track
+and feed and read just after. Then a `kernels` JSON line, the nvidia-smi
+line, and as the last line {"ok": true, "device": {...}}. Without CUDA it
+exits 2 and prints no result. --profile adds a torch.profiler table of one
+training step and cProfile's table of the track phase's dispatcher thread.
 """
 
 from __future__ import annotations
 
 import argparse
+import cProfile
 import json
 import math
 import os
+import pstats
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -69,10 +88,17 @@ from gifgan_tpu_torch.kernels.flow_refine import (bilinear_windows, lk_refine,
                                                   lk_refine_plain)
 from gifgan_tpu_torch.kernels.gather import (gather_rows_scaled,
                                              gather_rows_scaled_plain)
+from gifgan_tpu_torch.kernels.haar_stages import (haar_stages,
+                                                  haar_stages_plain)
 from gifgan_tpu_torch.kernels.resize import (interp_taps, resize_normalize,
                                              resize_normalize_plain)
 from gifgan_tpu_torch.serve.sampler import gif_wall, vid_sample_fn
+from gifgan_tpu_torch.track import pipeline as tpipe
+from gifgan_tpu_torch.track import synthetic_cascade
 from gifgan_tpu_torch.track.boxes import Detection
+from gifgan_tpu_torch.track.haar import NativeHaarDetector
+from gifgan_tpu_torch.track.haar_device import (DeviceHaarDetector,
+                                                letterbox_stack)
 from gifgan_tpu_torch.track.pipeline import process_video
 from gifgan_tpu_torch.track.stats import TrackStats
 from gifgan_tpu_torch.train import vid
@@ -80,14 +106,22 @@ from gifgan_tpu_torch.train import vid
 # H100 SXM data-sheet peaks (NVIDIA), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# an aside for K3, not a bound of the contract: a warp's load of 32
+# neighbouring words is one 128-byte L1 transaction, one a clock and SM
+# (132 SMs at the 1.98 GHz boost clock)
+L1_WARP_LOADS_PER_S = 132 * 1.98e9
 
-N_CLIPS, K_STEPS, BATCH, REQUESTS, WARM_CHUNKS = 4096, 4, 64, 3, 5
-# prep: source clips. 48 frames, not fewer: a detection on every fifth frame
-# must reach TrackConfig's default min_total_detections of 10.
-SRC_FILES, SRC_FRAMES, SRC_H, SRC_W, PATCH = 4, 48, 360, 480, 160
-# the "face" box the detector reports: the patch plus a black margin, so a
-# crop shows the whole patch and its centre can be read off the crop
-MARGIN, CENTRE_TOL_PX = 12, 4.0
+N_CLIPS, K_STEPS, BATCH, REQUESTS, WARM_CHUNKS = 4096, 4, 64, 3, 3
+# prep and track: source clips. 48 frames, not fewer: a detection on every
+# fifth frame must reach TrackConfig's default min_total_detections of 10.
+# The face box is the cascade's glyph with its black margin (its bright face
+# is the inner 16/20), so a crop shows the whole face and its centre can be
+# read off the crop.
+SRC_FILES, SRC_FRAMES, SRC_H, SRC_W, BOX = 2, 48, 360, 480, 200
+TRACK_FILES, CENTRE_TOL_PX = 4, 4.0
+# K3: the clip, the stages on the card, and the cost model of its bound
+K3_FRAMES, K3_SIZE, EARLY_STAGES = 16, 256, 10
+OPS_PER_WINDOW, OPS_PER_TREE = 20, 35
 # feed: the crop GIFs repeated to one flagship batch per epoch
 FEED_PATHS, FEED_EPOCHS, FEED_STEPS, CLIP_LEN, CLIP_SIZE = 64, 3, 2, 16, 64
 DEVICE = "cuda"
@@ -112,6 +146,13 @@ KERNELS = [{
     "replaces": "gifgan_tpu/kernels/flow_pallas.py:116",
     "counter": lk_refine,
     "path": "prep",
+}, {
+    "name": "haar_stages",
+    "route": "cuda",
+    "source": "gifgan_tpu_torch/csrc/haar_stages.cu",
+    "replaces": "gifgan_tpu/track/haar_device.py:573",
+    "counter": haar_stages,
+    "path": "track",
 }]
 
 
@@ -474,6 +515,284 @@ def phase_k4(seed):
             "ms_one_pair": top["ms_one_pair"]}
 
 
+def phase_k3(xml, seed):
+    """K3 against its plain version at the stage program's real shapes."""
+    rng = np.random.default_rng(seed + 20)
+    det = DeviceHaarDetector(xml, min_neighbors=3, device=DEVICE)
+    check(det.early_stages == EARLY_STAGES, "10 early stages")
+    n_all = len(det.cas.stage_thr)
+
+    def canvases(frames):
+        plan = det._plan(*frames.shape[1:])
+        ii, ii2 = det._canvases(plan, torch.from_numpy(frames).to(DEVICE))
+        return plan, ii, ii2
+
+    def compare(what, frames, dtype):
+        plan, ii, ii2 = canvases(frames)
+        check(ii.dtype == dtype, f"K3 {what} canvases are {dtype}")
+        before = haar_stages.launches
+        got = haar_stages(ii, ii2, plan.valid, plan.tables, EARLY_STAGES)
+        torch.cuda.synchronize()
+        check(haar_stages.launches == before + 1, "one K3 launch per call")
+        want = haar_stages_plain(ii, ii2, plan.valid, plan.tables,
+                                 EARLY_STAGES)
+        differ = int((got != want).sum())
+        check(got.dtype == torch.int8 and got.shape == (
+            len(frames), plan.ny, plan.nx), f"K3 {what} mask shape")
+        say("K3", case=what, canvas=f"{len(frames)}x{plan.canvas_h}x"
+            f"{plan.canvas_w}", grid=f"{plan.ny}x{plan.nx}",
+            trees=plan.tables.stage_end[EARLY_STAGES - 1],
+            survivors=int(got.sum()), differing_windows=differ)
+        check(differ == 0, f"K3 {what} mask equals the plain mask: {differ} "
+                           f"windows differ")
+        check(0 < int(got.sum()) < got.numel() // 20,
+              f"K3 {what}: some windows survive, few")
+        return plan, ii, ii2, differ
+
+    sides = rng.integers(30, 140, K3_FRAMES)
+    clip = np.stack([synthetic_cascade.planted_frame(
+        rng, K3_SIZE, K3_SIZE, int(s), "noise")[0] for s in sides])
+    plan, ii, ii2, differ = compare("f32 16x256x256", clip, torch.float32)
+    check((len(plan.levels), plan.canvas_h, plan.canvas_w, plan.ny, plan.nx,
+           plan.tables.stage_end[EARLY_STAGES - 1])
+          == (27, 2662, 257, 2642, 237, 253), "K3 shapes at 16x256x256")
+    # the float64 instance at the shape the track path launches it: 360x480
+    # frames letterboxed as detect_clips does, one dispatch's worth of them
+    wide = np.stack([synthetic_cascade.planted_frame(
+        rng, SRC_H, SRC_W, int(s), "noise")[0] for s in (90, 150, 210, 280)])
+    box = letterbox_stack([wide]).shape[1:]
+    n_wide = det.frames_per_dispatch(det._plan(*box))
+    wide = np.rint(letterbox_stack(
+        [wide[np.arange(n_wide) % len(wide)]])).astype(np.uint8)
+    check(wide.shape[1:] == (384, 480) and n_wide > 4,
+          f"K3 track-path shape: {wide.shape}")
+    differ += compare(f"f64 {n_wide}x360x480 letterboxed to 384x480", wide,
+                      torch.float64)[3]
+
+    # how far a window gets: alive counts after 0..10 stages
+    n_valid = int(plan.valid.sum()) * K3_FRAMES
+    entering = [n_valid] + [int(haar_stages(
+        ii, ii2, plan.valid, plan.tables, n).sum())
+        for n in range(1, EARLY_STAGES)]
+    counts = np.diff((0,) + plan.tables.stage_end[:EARLY_STAGES])
+    trees_seen = float(np.dot(entering, counts)) / n_valid
+    n_trees = int(counts.sum())
+
+    args = (ii, ii2, plan.valid, plan.tables, EARLY_STAGES)
+    ms = graph_ms(haar_stages, [args] * 4)
+    plain_ms = event_ms(haar_stages_plain, [args], warmup=1, reps=2)
+    ms_all = graph_ms(haar_stages, [args[:4] + (n_all,)] * 4)
+    ms2 = graph_ms(haar_stages, [args] * 4)
+    kernel_ms = min(ms, ms2)
+    # bytes: both canvases, the grid's validity and the tables read once,
+    # the mask written once. Operations: the normalizer of every valid
+    # window and 35 a tree, for the trees this clip's windows see (the exit
+    # is part of the function's work on this data) and, as an aside, for all
+    # 253 with no exit. Aside: the corner loads as L1 transactions, one per
+    # warp and load, node 1 counted for every tree.
+    nbytes = (ii.numel() + ii2.numel()) * ii.element_size() + (
+        K3_FRAMES + 1) * plan.ny * plan.nx + sum(
+        a.nbytes for a in plan.tables.host)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_valid * (OPS_PER_WINDOW + trees_seen * OPS_PER_TREE
+                        ) / F32_FLOPS * 1e3
+    no_exit_ms = n_valid * (OPS_PER_WINDOW + n_trees * OPS_PER_TREE
+                            ) / F32_FLOPS * 1e3
+    rects = float((plan.tables.host[1][:n_trees] != 0).sum()) / n_trees
+    l1_ms = n_valid * (8 + trees_seen * rects * 4) / 32 / (
+        L1_WARP_LOADS_PER_S) * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    say("K3", windows=n_valid, entering_stage=",".join(map(str, entering)),
+        mean_trees_per_window=f"{trees_seen:.3f}", of=n_trees,
+        kernel_ms=f"{ms:.5f},{ms2:.5f}", plain_ms=f"{plain_ms:.3f}",
+        kernel_ms_all_20_stages=f"{ms_all:.5f}", library_ms="none",
+        bound_ms=f"{bound_ms:.5f}", bound_bytes_ms=f"{bytes_ms:.5f}",
+        bound_ops_ms_measured_trees=f"{ops_ms:.5f}",
+        aside_ops_ms_no_exit=f"{no_exit_ms:.5f}",
+        aside_l1_corner_loads_ms=f"{l1_ms:.5f}",
+        bound_share=f"{bound_ms / kernel_ms:.3f}")
+    return {"max_abs_err": float(differ), "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call evaluates a "
+                            "cascade over a window grid",
+            "ms_all_20_stages": ms_all, "mean_trees_per_window": trees_seen}
+
+
+def iou(a, b):
+    x1, y1 = max(a[0], b[0]), max(a[1], b[1])
+    x2 = min(a[0] + a[2], b[0] + b[2])
+    y2 = min(a[1] + a[3], b[1] + b[3])
+    inter = max(0, x2 - x1) * max(0, y2 - y1)
+    return inter / (a[2] * a[3] + b[2] * b[3] - inter)
+
+
+def phase_detect(xml, seed):
+    """detect_clips on 8 clips of mixed sizes against the host detector."""
+    rng = np.random.default_rng(seed + 30)
+    dev = DeviceHaarDetector(xml, min_neighbors=3, device=DEVICE)
+    host = NativeHaarDetector(xml, min_neighbors=3)
+    primary = lambda r: r[np.argmax(r[:, 2] * r[:, 3])]
+    for px in (128, 256):
+        clips, truth = [], []
+        for c in range(8):
+            h, w = px - 8 * (c % 3), px - 12 * (c % 4)
+            background = "noise" if c % 2 else "black"
+            frames, boxes = [], []
+            for _ in range(5):
+                f, box = synthetic_cascade.planted_frame(
+                    rng, h, w, int(rng.integers(px // 4, px // 2)),
+                    background)
+                frames.append(f)
+                boxes.append(box)
+            frames.append(rng.integers(0, 255, (h, w)).astype(np.uint8))
+            boxes.append(None)               # a noise frame: no glyph
+            clips.append(np.stack(frames).astype(np.float64))
+            truth.append(boxes)
+        dev.detect_clips(clips)                              # warm
+        torch.cuda.synchronize()
+        reset = haar_stages.launches
+        t = time.perf_counter()
+        got = dev.detect_clips(clips)
+        dev_ms = (time.perf_counter() - t) * 1e3 / len(clips)
+        launches = haar_stages.launches - reset
+        t = time.perf_counter()
+        want = [[host.detect_rects(f) for f in c] for c in clips]
+        host_ms = (time.perf_counter() - t) * 1e3 / len(clips)
+        glyphs = agree = found = quiet = noise = 0
+        for g_clip, w_clip, boxes in zip(got, want, truth):
+            for g, w, box in zip(g_clip, w_clip, boxes):
+                if box is None:
+                    noise += 1
+                    quiet += len(g) == 0
+                    continue
+                glyphs += 1
+                x, y, side = box
+                found += len(g) > 0 and iou(primary(g), (x, y, side,
+                                                         side)) > 0.6
+                agree += (len(g) > 0 and len(w) > 0
+                          and iou(primary(g), primary(w)) > 0.6)
+        say("detect", px=px, clips=len(clips), frames_per_clip=6,
+            glyph_frames=glyphs, agree_with_host=agree, planted_found=found,
+            noise_frames=noise, noise_frames_quiet=quiet,
+            k3_launches=launches, device_ms_per_clip=f"{dev_ms:.2f}",
+            host_ms_per_clip=f"{host_ms:.2f}")
+        check(agree * 6 >= glyphs * 5, f"detect {px}: primary boxes agree "
+              f"with the host detector (IoU > 0.6) on {agree}/{glyphs}")
+        check(found * 6 >= glyphs * 5, f"detect {px}: planted glyphs found "
+              f"on {found}/{glyphs}")
+        check(quiet == noise, f"detect {px}: nothing on noise frames")
+        check(launches >= 1, "detect went through K3")
+
+
+class Stopwatch:
+    """Seconds spent inside chosen functions, summed over threads."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._lock = threading.Lock()
+        self._undo = []
+
+    def wrap(self, owner, name, key):
+        real = getattr(owner, name)
+
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                with self._lock:
+                    self.seconds[key] = (self.seconds.get(key, 0.0)
+                                         + time.perf_counter() - t)
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, real))
+
+    def restore(self):
+        for owner, name, real in self._undo:
+            setattr(owner, name, real)
+
+
+def phase_track(xml, seed, workdir, profile=False):
+    """The track entry point: source GIFs -> run_directory with the cascade
+    file and no injected detector -> crop GIFs. `profile` adds cProfile's
+    view of this thread, the dispatcher that owns the detector (the workers'
+    threads are not in it)."""
+    in_dir = os.path.join(workdir, "track_in")
+    out_dir = os.path.join(workdir, "track_out")
+    os.makedirs(in_dir)
+    boxes = []
+    for i in range(TRACK_FILES):
+        frames, b = source_clip(seed + 40 + i)
+        write_gif(os.path.join(in_dir, f"src{i}.gif"), frames)
+        boxes.append(b)
+    cfg = TrackConfig()      # detector "auto": the device detector, K3
+    watch = Stopwatch()
+    watch.wrap(tpipe, "_decode", "decode")
+    watch.wrap(DeviceHaarDetector, "detect_clips", "detect")
+    watch.wrap(DeviceHaarDetector, "_plan", "plan")   # inside detect, once
+    watch.wrap(tpipe, "process_video", "track")
+    watch.wrap(tpipe, "_write_crop", "write")
+    profiler = cProfile.Profile() if profile else None
+    reset_counts()
+    t = time.perf_counter()
+    try:
+        run = lambda: tpipe.run_directory(in_dir, out_dir, cfg,
+                                          cascade_path=xml, detector=None,
+                                          workers=2)
+        stats = profiler.runcall(run) if profile else run()
+    finally:
+        watch.restore()
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t) * 1e3
+    launches = read_counts()
+    if profile:
+        rows = sorted(pstats.Stats(profiler).stats.items(),
+                      key=lambda kv: -kv[1][2])[:12]
+        for (path, line, name), (_, calls, own, _, _) in rows:
+            say("track-profile", function=f"{os.path.basename(path)}:{line}:"
+                f"{name}", calls=calls, own_ms=f"{own * 1e3:.1f}")
+    with open(os.path.join(out_dir, "params.json")) as f:
+        params = json.load(f)
+    check(params["detector_backend_selected"] == "device"
+          and params["detect_batch_clips_selected"] == 8,
+          f"auto took the device detector, batched: {params}")
+    check(stats.cnt_files_errored == 0
+          and stats.cnt_files_processed == TRACK_FILES,
+          f"no file failed: {stats.counters}")
+    crop_paths, offsets = [], []
+    for i in range(TRACK_FILES):
+        path = os.path.join(out_dir, f"src{i}_crop_0.gif")
+        check(os.path.exists(path), f"source {i} gave a crop: "
+                                    f"{sorted(os.listdir(out_dir))}")
+        clip = read_gif(path)
+        check(clip.shape[0] >= cfg.min_frame_count
+              and clip.shape[1:] == (cfg.target_size, cfg.target_size, 3),
+              f"source {i} crop {clip.shape}")
+        crop_paths.append(path)
+        # the glyph is in every frame, so the track starts at frame 0 and
+        # crop n shows frame n
+        offsets.append(max(patch_offset_px(clip[n], boxes[i][n][2])
+                           for n in range(clip.shape[0])))
+    check(launches["haar_stages"] > 0 and launches["lk_refine"] > 0,
+          f"track went through K3 and K4: {launches}")
+    check(max(offsets) <= CENTRE_TOL_PX,
+          f"crops follow the glyph within {CENTRE_TOL_PX} px: {offsets}")
+    split = {k: v * 1e3 / TRACK_FILES for k, v in watch.seconds.items()}
+    say("track", files=TRACK_FILES, frames=SRC_FRAMES,
+        source=f"{SRC_H}x{SRC_W}", workers=2,
+        detections=stats.cnt_total_detections, tracks=stats.cnt_final_tracks,
+        wall_ms_per_file=f"{total_ms / TRACK_FILES:.1f}",
+        ms_per_file_decode_detect_track_write=",".join(
+            f"{split.get(k, 0.0):.1f}" for k in ("decode", "detect", "track",
+                                                 "write")),
+        detect_plan_ms_once=f"{watch.seconds.get('plan', 0.0) * 1e3:.1f}",
+        centre_err_px=",".join(f"{o:.2f}" for o in offsets),
+        centre_tolerance_px=CENTRE_TOL_PX, launches=launches)
+    return crop_paths, launches
+
+
 def phase_check(seed):
     """The port on the card against the port on the CPU, float32."""
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -626,32 +945,28 @@ def phase_train(ts, cfg, tcfg, corpus, seed, profile):
 
 
 def source_clip(seed):
-    """One synthetic source clip, (SRC_FRAMES, SRC_H, SRC_W, 3) uint8: a
-    textured grey patch of about PATCH px on black that drifts right and
-    down and grows 1 px every third frame. Returns the frames and each
-    frame's face box (x, y, side): the patch and MARGIN px around it."""
+    """One synthetic source clip, (SRC_FRAMES, SRC_H, SRC_W, 3) uint8: the
+    cascade's glyph (a freckled face inside a black margin, about BOX px) on
+    black, drifting right and down and growing 1 px every third frame.
+    Returns the frames and each frame's face box (x, y, side): the glyph
+    with its margin."""
     rng = np.random.default_rng(seed)
-    tex = smooth_images(1, PATCH, seed)[0]
-    tex = 60 + (tex - tex.min()) * (170 / float(tex.max() - tex.min()))
     frames = np.zeros((SRC_FRAMES, SRC_H, SRC_W, 3), np.uint8)
-    x0, y0 = (int(v) for v in rng.integers(30, 70, 2))
+    x0, y0 = (int(v) for v in rng.integers(20, 60, 2))
     boxes = []
     for t in range(SRC_FRAMES):
-        side = PATCH + t // 3
+        side = BOX + t // 3
         x, y = x0 + 2 * t, y0 + t
-        patch = resize_normalize(tex[None, :, :, None].contiguous(), side,
-                                 side, normalize=False)[0, :, :, 0]
-        frames[t, y:y + side, x:x + side] = (
-            patch.round().clamp(0, 255).to(torch.uint8).cpu().numpy()[
-                :, :, None])
-        boxes.append((x - MARGIN, y - MARGIN, side + 2 * MARGIN))
+        glyph = np.rint(synthetic_cascade.glyph_image(side)).astype(np.uint8)
+        frames[t, y:y + side, x:x + side] = glyph[:, :, None]
+        boxes.append((x, y, side))
     return frames, boxes
 
 
 def patch_offset_px(crop, side):
-    """How far the patch's centre lies from the crop's centre, in source
+    """How far the face's centre lies from the crop's centre, in source
     pixels: the crop shows a stabilized box of about `side` source px, the
-    patch bright inside a black margin."""
+    glyph's face bright inside its black margin."""
     bright = crop.max(axis=-1) > 30
     ys, xs = np.nonzero(bright.any(axis=1))[0], np.nonzero(
         bright.any(axis=0))[0]
@@ -709,8 +1024,8 @@ def phase_prep(seed, workdir):
         offsets.append(max(patch_offset_px(clip[n], boxes[n][2])
                            for n in range(clip.shape[0])))
     launches = read_counts()
-    # every crop is at least PATCH px, padded to 160 or more: three levels
-    levels = kflow.pyramid_levels(PATCH, PATCH, cfg.lk_window, cfg.lk_levels)
+    # every crop is at least BOX px, padded to 224 or more: three levels
+    levels = kflow.pyramid_levels(BOX, BOX, cfg.lk_window, cfg.lk_levels)
     check(flow_calls >= SRC_FILES * (cfg.min_frame_count - 1),
           f"{flow_calls} flow calls")
     check(launches["lk_refine"] == flow_calls * levels > 0,
@@ -786,6 +1101,14 @@ def main(argv=None) -> int:
     measured = {"gather_rows_scaled": phase_k1(corpus, args.seed),
                 "resize_normalize": phase_k2(args.seed),
                 "lk_refine": phase_k4(args.seed)}
+    cascade_dir = tempfile.TemporaryDirectory()
+    t = time.perf_counter()
+    xml = synthetic_cascade.write_cascade(
+        os.path.join(cascade_dir.name, "seed_cascade.xml"), seed=args.seed)
+    say("cascade", stages=len(synthetic_cascade.ALT2_STAGES),
+        trees=sum(synthetic_cascade.ALT2_STAGES),
+        fit_seconds=f"{time.perf_counter() - t:.2f}")
+    measured["haar_stages"] = phase_k3(xml, args.seed)
     phase_check(args.seed)
 
     cfg, tcfg = flagship()
@@ -795,8 +1118,12 @@ def main(argv=None) -> int:
     launches = {"train": phase_train(ts, cfg, tcfg, corpus, args.seed,
                                      args.profile)}
     with tempfile.TemporaryDirectory() as workdir:
-        crop_paths, launches["prep"] = phase_prep(args.seed, workdir)
+        _, launches["prep"] = phase_prep(args.seed, workdir)
+        phase_detect(xml, args.seed)
+        crop_paths, launches["track"] = phase_track(xml, args.seed, workdir,
+                                                        args.profile)
         launches["feed"] = phase_feed(ts, cfg, tcfg, crop_paths, args.seed)
+    cascade_dir.cleanup()
 
     line = []
     for k in KERNELS:

@@ -23,6 +23,10 @@ What changes on the way in (`from_jax_flat`); `to_jax_flat` undoes it:
 
 Every other leaf (biases, BN scale/bias/mean/var, counts, `step`) crosses
 unchanged. Conversion is a pure permutation, so a round trip is bit-exact.
+
+The detection path has no weights; its model data is the cascade file, and
+`cascade_tables` carries a parsed cascade of either package into the stage
+kernel's tables.
 """
 
 from __future__ import annotations
@@ -88,3 +92,27 @@ def to_jax_flat(tree: Any) -> Dict[str, np.ndarray]:
             arr = arr.transpose(np.argsort(_TO_PORT[lay]))
         out[_OPT_PORT.sub(r"\1/0/", key)] = np.array(arr, order="C")
     return out
+
+
+def cascade_tables(cas: Any, n_stages: int = None, dtype=np.float32):
+    """A parsed Haar cascade -> the stage kernel's per-tree tables
+    (kernels/haar_stages.py cascade_tables_rolled).
+
+    `cas` is either package's `HaarCascade` (gifgan_tpu/track/haar.py or
+    track/haar.py here): only its fields are read, as numpy arrays, so a
+    test can parse one XML with the JAX package and hand both sides the
+    same cascade. There are no learned weights on the detection path; the
+    cascade file is its model data. n_stages=None takes every stage."""
+    import dataclasses
+
+    from gifgan_tpu_torch.kernels.haar_stages import cascade_tables_rolled
+    from gifgan_tpu_torch.track.haar import HaarCascade, _scaled_rects
+
+    own = HaarCascade(**{
+        f.name: (int(getattr(cas, f.name)) if f.name.startswith("window_")
+                 else np.array(getattr(cas, f.name)))
+        for f in dataclasses.fields(HaarCascade)})
+    if n_stages is None:
+        n_stages = len(own.stage_thr)
+    return cascade_tables_rolled(own, _scaled_rects(own, 1.0), n_stages,
+                                 dtype)

@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` exposes a plain C function and is compiled by nvcc on
 its own into `gifgan_tpu_torch/_build/lib<name>-<hash>.so` (a directory
 .gitignore lists), then loaded with ctypes. The hash covers the source and
-the flags, so an edited source builds afresh and a stale library is never
-loaded. Nothing is built at import: the first `load` builds what it needs,
-and `build` compiles several sources at once, one nvcc process each.
+the flags, the kernel's own `EXTRA_FLAGS` included, so an edited source or a
+changed flag builds afresh and a stale library is never loaded. Nothing is
+built at import: the first `load` builds what it needs, and `build` compiles
+several sources at once, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -23,6 +24,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of one kernel. haar_stages compares sums with thresholds and must
+# round every multiply and add on its own, as its plain PyTorch version
+# does: nvcc's default contracts a * b + c into one fused operation.
+EXTRA_FLAGS = {"haar_stages": ("-fmad=false",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -41,9 +46,13 @@ def source(name: str) -> str:
     return os.path.join(CSRC, f"{name}.cu")
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def lib_path(name: str) -> str:
     with open(source(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(flags(name)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -59,7 +68,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
         procs[n] = (path, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, source(n)],
+            [_nvcc(), *flags(n), "-o", tmp, source(n)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
     for n, (path, tmp, proc) in procs.items():

@@ -32,7 +32,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 33, out.stdout
+    assert int(n) >= 40, out.stdout
     assert bad == "[]", bad
 
 
@@ -44,7 +44,8 @@ def _entry_points():
     from gifgan_tpu_torch.data import loader, video
     from gifgan_tpu_torch.data.device import DeviceCorpus
     from gifgan_tpu_torch.kernels import flow
-    from gifgan_tpu_torch.track import pipeline
+    from gifgan_tpu_torch import cli
+    from gifgan_tpu_torch.track import detect, haar_device, pipeline
     from gifgan_tpu_torch.track.boxes import Detection
     from gifgan_tpu_torch.train import vid
 
@@ -72,6 +73,27 @@ def _entry_points():
             frames, [track], 8),
         "run_directory": lambda: pipeline.run_directory(
             "/none", "/none", TrackConfig(), detector=lambda f, i: []),
+        "run_directory_cascade": lambda: pipeline.run_directory(
+            "/none", "/none", TrackConfig(), cascade_path="/none.xml"),
+        "process_video_cascade": lambda: pipeline.process_video(
+            frames, None, TrackConfig(), cascade_path="/none.xml"),
+        # no cascade file either: still the card, never OpenCV on the host
+        "run_directory_no_cascade": lambda: pipeline.run_directory(
+            "/none", "/none", TrackConfig()),
+        "process_video_no_cascade": lambda: pipeline.process_video(
+            frames, None, TrackConfig()),
+        "cli_track_no_cascade": lambda: cli.main(
+            ["track", "--input-directory", "/none", "--output-directory",
+             "/none"]),
+        "DeviceHaarDetector": lambda: haar_device.DeviceHaarDetector(
+            "/none.xml"),
+        "default_detector_auto": lambda: detect.default_detector(
+            "/none.xml"),
+        "default_detector_device": lambda: detect.default_detector(
+            "/none.xml", backend="device"),
+        "cli_track": lambda: cli.main(
+            ["track", "--input-directory", "/none", "--output-directory",
+             "/none", "--cascade", "/none.xml"]),
     }
 
 
@@ -83,11 +105,18 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, name):
 
 
 def test_kernel_wrappers_take_tensors_only():
-    """resize_normalize and lk_refine have no device argument: the tensor
-    they are given decides (CPU -> plain version, CUDA -> kernel). A numpy
-    array, which lies on no device, is refused, not run on the CPU."""
+    """resize_normalize, lk_refine and haar_stages have no device argument:
+    the tensor they are given decides (CPU -> plain version, CUDA ->
+    kernel). A numpy array, which lies on no device, is refused, not run on
+    the CPU."""
     from gifgan_tpu_torch.kernels.flow_refine import lk_refine
+    from gifgan_tpu_torch.kernels.haar_stages import haar_stages
     from gifgan_tpu_torch.kernels.resize import resize_normalize
+
+    with pytest.raises(ValueError, match="torch.Tensor"):
+        haar_stages(np.zeros((1, 64, 64), np.float32),
+                    np.zeros((1, 64, 64), np.float32),
+                    np.ones((4, 4), np.int8), None, 1)
 
     with pytest.raises(ValueError, match="torch.Tensor"):
         resize_normalize(np.zeros((1, 8, 8, 3), np.uint8), 4, 4)

@@ -1,6 +1,8 @@
 """The port's track modules (gifgan_tpu_torch/track/*, kernels/crop_resize.py)
 against the JAX package on the same seeded numpy inputs, and the slice as a
-whole: process_video and run_directory with an injected detector.
+whole: process_video and run_directory with an injected detector, and
+run_directory and the `track` command with a cascade file (a seeded one,
+track/synthetic_cascade.py) and the device detector on the CPU.
 
 Tolerances: box geometry and the stats counters are integer-exact; the
 similarity fit 1e-12 (float64, same formula); crop_resize_bilinear rtol 1e-5
@@ -246,13 +248,19 @@ def test_default_flow_backend_is_the_device_one(monkeypatch, backend):
         TS.stabilize_tracks([], [], (8, 8))
 
 
-def test_missing_detector_raises():
+def test_missing_detector_raises(tmp_path):
+    """No detector and no cascade file: the default ("auto") and every
+    named cascade backend raise, from both entry points; OpenCV's own
+    classifier is never taken unasked."""
     frames, _ = _square_video(T=4)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tpipe.process_video(frames, None, TrackConfig(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="K3"):
-        tpipe.run_directory("/nonexistent", "/nonexistent", TrackConfig(**CFG),
-                            device="cpu")
+    (tmp_path / "in").mkdir()
+    for backend in ("auto", "device", "native", "python"):
+        cfg = TrackConfig(**{**CFG, "detector_backend": backend})
+        with pytest.raises(ValueError, match="needs a cascade file"):
+            tpipe.process_video(frames, None, cfg, device="cpu")
+        with pytest.raises(ValueError, match="needs a cascade file"):
+            tpipe.run_directory(str(tmp_path / "in"), str(tmp_path / "out"),
+                                cfg, device="cpu")
 
 
 def test_process_video_cv2_backend_within_3px_of_device_backend():
@@ -373,3 +381,216 @@ def test_stats_roundtrip_and_merge_equal_jax(tmp_path):
                                                "stats.json")))
     assert back.merge(t).cnt_total_detections == 10
     assert back.merge(t).histograms["hst_jaccard_used"][0.7] == 2
+
+
+# -- detection from a cascade file ------------------------------------------
+
+GLYPH_CFG = dict(min_frame_count=10, min_total_detections=3, target_size=32,
+                 max_corners=50, flow_backend="mxu", min_neighbors=3)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs several worker processes at once; one intra-op thread
+    in each keeps the plain kernels' large elementwise passes from
+    oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def cascade_xml(tmp_path_factory):
+    from gifgan_tpu_torch.track import synthetic_cascade as SC
+
+    # five stages: on black backgrounds they already single out the glyph,
+    # and the kernel's plain version costs a pass over every window per tree
+    return SC.write_cascade(
+        str(tmp_path_factory.mktemp("cascade") / "small.xml"), seed=0,
+        stages=SC.SMALL_STAGES[:5], n_pos=300, n_neg=1500)
+
+
+def _glyph_gifs(in_dir, n, frames=12, h=96, w=128, side=64):
+    """n GIFs of the cascade's glyph drifting 1 px a frame over black, at a
+    size that is its own letterbox canvas (multiples of 32). 64 px, not
+    fewer: the stabilizer needs some tens of corners inside the box."""
+    from gifgan_tpu_torch.data.video import write_gif
+    from gifgan_tpu_torch.track import synthetic_cascade as SC
+
+    glyph = np.rint(SC.glyph_image(side)).astype(np.uint8)
+    for i in range(n):
+        clip = np.zeros((frames, h, w, 3), np.uint8)
+        for t in range(frames):
+            x, y = 10 + 4 * i + t, 8 + 3 * i + t // 2
+            clip[t, y:y + side, x:x + side] = glyph[:, :, None]
+        write_gif(str(in_dir / f"g{i}.gif"), clip)
+
+
+def _crops(out_dir):
+    from gifgan_tpu_torch.data.video import read_gif
+
+    names = sorted(f for f in os.listdir(out_dir) if "_crop_" in f)
+    return {n: read_gif(str(out_dir / n)) for n in names}
+
+
+def test_process_video_builds_the_default_detector(cascade_xml):
+    from gifgan_tpu_torch.track.haar_device import DeviceHaarDetector
+
+    frames, boxes = _square_video(T=4)
+    built = []
+    real = DeviceHaarDetector.detect_video
+
+    def spy(self, f):
+        built.append(self)
+        return real(self, f)
+
+    DeviceHaarDetector.detect_video = spy
+    try:
+        out = tpipe.process_video(frames, None, TrackConfig(**GLYPH_CFG),
+                                  device="cpu", cascade_path=cascade_xml)
+    finally:
+        DeviceHaarDetector.detect_video = real
+    assert out == [] and len(built) == 1
+    assert built[0].device.type == "cpu" and built[0].min_neighbors == 3
+
+
+def test_run_directory_with_cascade_batched_composed_and_per_file(
+        tmp_path, cascade_xml):
+    """The three ways through detection write the same crops: serial batched
+    (auto: 8 clips a dispatch), the composed dispatcher (workers=2, 2 clips
+    a dispatch) and per-file detect_video (backend named, no batch). The
+    sources are their own letterbox canvas, so batching changes no frame's
+    level plan."""
+    in_dir = tmp_path / "in"
+    in_dir.mkdir()
+    _glyph_gifs(in_dir, 2)
+    (in_dir / "broken.gif").write_bytes(b"GIF89a-not-really")
+    runs = {
+        "serial": dict(cfg={}, workers=1),
+        "composed": dict(cfg={}, workers=2, detect_batch_clips=2),
+        "per_file": dict(cfg={"detector_backend": "device"}, workers=1),
+    }
+    stats, crops, params = {}, {}, {}
+    for name, kw in runs.items():
+        cfg = TrackConfig(**{**GLYPH_CFG, **kw.pop("cfg")})
+        stats[name] = tpipe.run_directory(
+            str(in_dir), str(tmp_path / name), cfg, cascade_path=cascade_xml,
+            device="cpu", **kw)
+        crops[name] = _crops(tmp_path / name)
+        with open(tmp_path / name / "params.json") as f:
+            params[name] = json.load(f)
+    for name, s in stats.items():
+        assert s.cnt_files_processed == 2 and s.cnt_files_errored == 1, name
+        # the five-stage cascade may add a spurious track or two
+        assert s.cnt_final_tracks >= 2, (name, s.counters)
+        assert {f"g{i}_crop_0.gif" for i in range(2)} <= set(crops[name])
+    assert stats["serial"].counters == stats["composed"].counters \
+        == stats["per_file"].counters
+    for name in ("composed", "per_file"):
+        assert sorted(crops[name]) == sorted(crops["serial"])
+        for k, clip in crops["serial"].items():
+            assert clip.shape[1:] == (32, 32, 3) and clip.shape[0] >= 10
+            assert np.array_equal(clip, crops[name][k]), (name, k)
+    assert params["serial"]["detector_backend_selected"] == "device"
+    assert params["serial"]["detect_batch_clips_selected"] == 8
+    assert params["composed"]["detect_batch_clips_selected"] == 2
+    assert "detector_backend_selected" not in params["per_file"]
+    assert params["per_file"]["detector_backend"] == "device"
+    # a crop follows the glyph: its bright face sits in the crop's middle
+
+    def centred(clip):
+        ys, xs = np.nonzero(clip[5].max(axis=-1) > 100)
+        return abs(ys.mean() - 15.5) < 3 and abs(xs.mean() - 15.5) < 3
+
+    assert any(centred(c) for k, c in crops["serial"].items()
+               if k.startswith("g0_"))
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_each_source_is_decoded_once(tmp_path, cascade_xml, workers):
+    in_dir = tmp_path / "in"
+    in_dir.mkdir()
+    _glyph_gifs(in_dir, 2, frames=4)
+    from gifgan_tpu_torch.data.video import read_gif
+
+    seen = []
+
+    def decode_fn(path):
+        seen.append(os.path.basename(path))
+        return read_gif(path)
+
+    s = tpipe.run_directory(str(in_dir), str(tmp_path / "out"),
+                            TrackConfig(**GLYPH_CFG),
+                            cascade_path=cascade_xml, decode_fn=decode_fn,
+                            workers=workers, device="cpu")
+    assert s.cnt_files_processed == 2 and sorted(seen) == ["g0.gif", "g1.gif"]
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_failed_dispatch_marks_the_group_errored(tmp_path, capsys, workers):
+    """A detect_clips that raises is not retried per clip on another path:
+    its group's files count as errored and the traceback prints; the next
+    group still runs."""
+    in_dir = tmp_path / "in"
+    in_dir.mkdir()
+    _glyph_gifs(in_dir, 3, frames=4)
+
+    class Detector:
+        calls = 0
+
+        def detect_clips(self, grays):
+            self.calls += 1
+            if self.calls == 1:
+                raise RuntimeError("dispatch refused")
+            return [[np.zeros((0, 4), np.int32)] * len(g) for g in grays]
+
+        def __call__(self, frame, n):
+            pytest.fail("per-clip detection was taken")
+
+    det = Detector()
+    s = tpipe.run_directory(str(in_dir), str(tmp_path / "out"),
+                            TrackConfig(**GLYPH_CFG), detector=det,
+                            detect_batch_clips=2, workers=workers,
+                            device="cpu")
+    assert det.calls == 2
+    assert s.cnt_files_errored == 2 and s.cnt_files_processed == 1
+    assert "dispatch refused" in capsys.readouterr().err
+    assert _crops(tmp_path / "out") == {}
+
+
+def test_track_command_on_the_cpu(tmp_path, cascade_xml):
+    """`python -m gifgan_tpu_torch track --device cpu` over two GIFs."""
+    import subprocess
+    import sys
+
+    in_dir = tmp_path / "in"
+    in_dir.mkdir()
+    _glyph_gifs(in_dir, 2, frames=6)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "gifgan_tpu_torch", "track",
+           "--input-directory", str(in_dir), "--output-directory",
+           str(tmp_path / "out"), "--cascade", cascade_xml,
+           "--min-frame-count", "5", "--min-total-detections", "3",
+           "--target-size", "32", "--workers", "2"]
+    out = subprocess.run(cmd + ["--device", "cpu"], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=repo,
+                                  OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "cnt_files_processed" in out.stdout
+    with open(tmp_path / "out" / "params.json") as f:
+        params = json.load(f)
+    assert params["detector_backend_selected"] == "device"
+    assert params["detect_batch_clips_selected"] == 8
+    with open(tmp_path / "out" / "stats.json") as f:
+        counters = json.load(f)["counters"]
+    assert counters["cnt_files_processed"] == 2
+    assert counters["cnt_files_errored"] == 0
+    assert counters["cnt_total_detections"] >= 12
+    # without --device the command wants the card
+    if not torch.cuda.is_available():
+        bad = subprocess.run(cmd, cwd=repo,
+                             env=dict(os.environ, PYTHONPATH=repo),
+                             capture_output=True, text=True, timeout=300)
+        assert bad.returncode != 0 and "CUDA" in bad.stderr
