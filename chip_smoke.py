@@ -10,23 +10,29 @@ Phases, one report line each, any failed check raising:
 3. corpus   4096 synthetic 16x64x64x3 clips, resident as uint8 on the card;
 4. K1       the corpus gather kernel at the training shape (64 ids with
             duplicates and out-of-range values) against its plain PyTorch
-            version, and timed beside it and beside torch.index_select;
+            version, and timed beside it and, as an aside (a copy only, no
+            widen or scale), beside torch.index_select;
 5. K2       the resize + normalize kernel at the feed's shape ((1024, 256,
             256, 3) uint8 -> 64x64, scaled) and on a float32 non-square
             case, against its plain version; timed beside it and beside
             F.interpolate;
 6. K3       the cascade stage kernel with a seeded cascade of alt2's shape
             (253 trees in its first 10 stages) on the packed pyramid
-            canvases of a 16x256x256 clip with planted glyphs (float32) and
-            of 360x480 frames (float64), against its plain version, every
-            byte of the mask; timed beside it, with all 20 stages too, and
-            the mean number of trees a window sees;
+            canvases of a 16x256x256 clip with planted glyphs (float32, 10
+            and all 20 stages) and of one track dispatch of 360x480 frames
+            letterboxed to 384x480 (float64), against its plain version,
+            every byte of the mask; both instances timed beside their
+            bounds (float64 operations at F64_FLOPS), with the windows
+            entering each stage, the mean number of trees a window sees
+            and the share of those trees whose node 0 sends it to node 1
+            (the bounds count node 1 only there);
 7. K4       the LK refinement kernel on 8 pairs of 224x224 images with known
             shifts, 200 corners, at each of the three pyramid levels,
             against its plain version, all pairs in one launch and one pair
-            alone (the stabilizer's shape, also on a 192-px crop); the
-            median flow must recover the shifts; timed beside the plain
-            version;
+            alone; then one pair alone at the track path's crop bucket
+            (TRACK_BUCKET), the stabilizer's shape, all levels timed with
+            one step and the one-pair bound; the median flow must recover
+            the shifts;
 8. check    the port's model on the card against the same model on the CPU,
             float32 (TF32 off), at a small config: a sample and a train step;
 9. serve    sample-wall requests of 64 videos at the flagship width
@@ -46,7 +52,8 @@ Phases, one report line each, any failed check raising:
             with the cascade file and no injected detector (backend "auto":
             the device detector, batched, workers=2 so the composed
             dispatcher runs) -> crop GIFs; no file may fail, every file
-            gives a crop that follows the glyph, K3 and K4 both launch;
+            gives a crop that follows the glyph, K3 and K4 both launch, and
+            K4's largest image is the TRACK_BUCKET crop;
 14. feed    clip_batches_from_files over the track phase's crop GIFs (64
             paths, 16 frames, K2 to 64x64 on the card), then one
             train_chunk of K = 2 steps at the flagship width on the batches.
@@ -61,6 +68,7 @@ training step and cProfile's table of the track phase's dispatcher thread.
 from __future__ import annotations
 
 import argparse
+import collections
 import cProfile
 import json
 import math
@@ -106,6 +114,7 @@ from gifgan_tpu_torch.train import vid
 # H100 SXM data-sheet peaks (NVIDIA), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12          # outside the tensor cores
 # an aside for K3, not a bound of the contract: a warp's load of 32
 # neighbouring words is one 128-byte L1 transaction, one a clock and SM
 # (132 SMs at the 1.98 GHz boost clock)
@@ -119,9 +128,15 @@ N_CLIPS, K_STEPS, BATCH, REQUESTS, WARM_CHUNKS = 4096, 4, 64, 3, 3
 # read off the crop.
 SRC_FILES, SRC_FRAMES, SRC_H, SRC_W, BOX = 2, 48, 360, 480, 200
 TRACK_FILES, CENTRE_TOL_PX = 4, 4.0
+# the crop bucket (sides padded to multiples of 32) of the track phase's
+# flow calls: K4's level-0 image there, timed as "one pair"
+TRACK_BUCKET = 224
 # K3: the clip, the stages on the card, and the cost model of its bound
 K3_FRAMES, K3_SIZE, EARLY_STAGES = 16, 256, 10
-OPS_PER_WINDOW, OPS_PER_TREE = 20, 35
+# the normalizer's operations; a node's are NODE_OPS a rect with a weight
+# (3 corner sums, the weight product, the add to the feature, which the
+# first rect does not need) + 3 (the area product, thr * nf, the compare)
+OPS_PER_WINDOW, NODE_OPS = 20, 5
 # feed: the crop GIFs repeated to one flagship batch per epoch
 FEED_PATHS, FEED_EPOCHS, FEED_STEPS, CLIP_LEN, CLIP_SIZE = 64, 3, 2, 16, 64
 DEVICE = "cuda"
@@ -293,13 +308,14 @@ def phase_k1(corpus, seed):
     kernel_ms = min(ms, ms2)
     say("K1", max_abs_err=err, tolerance=2.0 ** -23, unique_rows=unique,
         kernel_ms=f"{ms:.5f},{ms2:.5f}", plain_ms=f"{plain_ms:.5f}",
-        library_ms_index_select_u8_copy_only=f"{lib_ms:.5f}",
+        library_ms="none", aside_index_select_u8_copy_ms=f"{lib_ms:.5f}",
         bound_ms=f"{bound_ms:.5f}", bound_share=f"{bound_ms / kernel_ms:.3f}",
         eager_ms_kernel_plain_library=",".join(f"{t:.5f}" for t in eager))
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
-            "library_call": "torch.index_select(data, 0, idx) of the uint8 "
-                            "rows: the copy only, no widen or scale"}
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "library_call": "none: no single PyTorch call computes the "
+                            "function",
+            "aside_index_select_u8_copy_ms": lib_ms}
 
 
 def phase_k2(seed):
@@ -462,7 +478,7 @@ def k4_levels(img0, img1, k, win, iters, levels, tol, timed):
 
 def phase_k4(seed):
     """K4 on 8 pairs with known shifts, at the three pyramid levels, and on
-    one pair of the stabilizer's 192-px crop bucket."""
+    one pair of the track path's crop bucket (TRACK_BUCKET)."""
     b, size, k, win, iters, levels, tol = 8, 224, 200, 15, 10, 3, 1e-2
     shifts = [(3, -2), (-1, 4), (2, 2), (-3, -1), (0, 5), (4, 0), (-2, 3),
               (1, -4)]
@@ -471,10 +487,11 @@ def phase_k4(seed):
                         for i, (dx, dy) in zip(img0, shifts)])
     pts, valid, per_level = k4_levels(img0, img1, k, win, iters, levels, tol,
                                       timed=True)
-    # the stabilizer pads its crops to multiples of 32: the 192-px bucket
-    _, _, bucket = k4_levels(img0[:1, :192, :192].contiguous(),
-                             img1[:1, :192, :192].contiguous(), k, win, iters,
-                             levels, tol, timed=False)
+    # one pair alone at the crop bucket the track path launches, all three
+    # levels, timed
+    i0 = smooth_images(1, TRACK_BUCKET, seed + 7)
+    bucket = k4_levels(i0, torch.roll(i0, (2, -3), (1, 2)), k, win, iters,
+                       levels, tol, timed=True)[2]
 
     # the port's own entry point, through the kernel, recovers the shifts
     reset_counts()
@@ -501,9 +518,14 @@ def phase_k4(seed):
             bound_by=r["bound_by"])
     for r in bucket:
         say("K4", level=r["level"], image=f"1x{r['hw']}x{r['hw']}",
-            one_pair_max_abs_err_px=r["err_one_pair"], tolerance_px=tol)
+            track_bucket=TRACK_BUCKET, corners=k, max_abs_err_px=r["err"],
+            tolerance_px=tol, kernel_ms_one_pair=f"{r['ms']:.5f}",
+            kernel_ms_one_pair_one_step=f"{r['ms_one_step']:.5f}",
+            plain_ms=f"{r['plain_ms']:.5f}", bound_ms=f"{r['bound_ms']:.5f}",
+            bound_by=r["bound_by"])
     say("K4", median_flow_err_px=f"{worst:.4f}")
     top = per_level[-1]                  # level 0: the full-size images
+    track = bucket[-1]                 # level 0 of the track bucket
     errs = [r[key] for r in per_level + bucket
             for key in ("err", "err_one_pair")]
     return {"max_abs_err": max(errs), "ms": top["ms"],
@@ -512,50 +534,154 @@ def phase_k4(seed):
             "library_call": "none: no single PyTorch call computes the "
                             "iterated LK solve",
             "ms_by_level": {str(r["level"]): r["ms"] for r in per_level},
-            "ms_one_pair": top["ms_one_pair"]}
+            "ms_one_pair": top["ms_one_pair"],
+            "track_bucket_one_pair": {
+                "hw": track["hw"], "ms": track["ms"],
+                "ms_one_step": track["ms_one_step"],
+                "plain_ms": track["plain_ms"], "bound_ms": track["bound_ms"],
+                "bound_by": track["bound_by"]}}
+
+
+def k3_node0(ii, ii2, tables, frames_yx, trees):
+    """For the windows at `frames_yx` ((k, 3) frame, gy, gx at stride 1) and
+    each tree of `trees`: whether node 0 sends the window left, computed
+    as the kernel computes it (same operations in the same order, in the
+    canvases' type)."""
+    _, ch, cw = ii.shape
+    flat = (frames_yx[:, 0] * ch + frames_yx[:, 1]) * cw + frames_yx[:, 2]
+    ww, wh = tables.window_w, tables.window_h
+    inv_area = float({torch.float32: np.float32, torch.float64: np.float64}[
+        ii.dtype](1.0 / (ww * wh)))
+    img, img2 = ii.reshape(-1), ii2.reshape(-1)
+
+    def rect(im, x0, y0, rw, rh):
+        at = flat + (y0 * cw + x0)
+        return ((im[at] + im[at + (rh * cw + rw)]) - im[at + rw]
+                ) - im[at + rh * cw]
+
+    mean_c = rect(img, 0, 0, ww, wh) * inv_area - 128.0
+    var = rect(img2, 0, 0, ww, wh) * inv_area - mean_c * mean_c
+    nf = torch.where(var > 0, torch.sqrt(torch.clamp(var, min=0.0)),
+                     torch.ones_like(var))
+    geo, wts, thr = tables.host[:3]
+    for tr in trees:
+        acc = None
+        for r in range(3):
+            wt = float(wts[tr, 0, r])
+            if wt == 0.0:
+                continue
+            g = int(geo[tr, 0, r])
+            v = rect(img, g & 31, (g >> 5) & 31, (g >> 10) & 31,
+                     (g >> 15) & 31) * wt
+            acc = v if acc is None else acc + v
+        yield tr, acc * inv_area < float(thr[tr, 0]) * nf
+
+
+def k3_cost(plan, ii, ii2, n_frames, flops):
+    """What one K3 call over these canvases must do, counted from this
+    run's data. The windows entering each early stage are the kernel's own
+    alive masks after 0..9 stages. Operations: OPS_PER_WINDOW for the
+    normalizer of every valid window; for every tree a window sees, node
+    0's rects with a weight (5 a rect + 2, NODE_OPS) and the leaf add; node
+    1's, only where node 0 sends the window to it, which `k3_node0` counts
+    (the stage sums' compare is left out). The bound is the larger of bytes
+    (both canvases, the validity grid and the tables read once, the mask
+    written once, at HBM_BYTES_PER_S) and these operations at `flops`, the
+    rate of the canvases' type. Asides: the operations with no exit (both
+    nodes of every tree for every valid window), and the corner loads the
+    counted rects make as L1 transactions, one per warp and load."""
+    grid, tables = plan.grid, plan.tables
+    n_valid = int(grid.valid.sum()) * n_frames
+    ends = (0,) + tables.stage_end[:EARLY_STAGES]
+    rects = (tables.host[1][:ends[-1]] != 0).sum(axis=2)       # (N, 2)
+    leaf = tables.host[4][:ends[-1]] != 0                      # (N, 2)
+    node = NODE_OPS * rects + 2
+    entering, ops, loads, taken = [], n_valid * OPS_PER_WINDOW, 8 * n_valid, 0
+    for s in range(EARLY_STAGES):
+        at = torch.nonzero(haar_stages(ii, ii2, grid, tables, s))
+        entering.append(len(at))
+        trees = range(ends[s], ends[s + 1])
+        ops += len(at) * int((node[trees, 0] + 1).sum())
+        loads += len(at) * 4 * int(rects[trees, 0].sum())
+        for tr, left in k3_node0(ii, ii2, tables, at, trees):
+            n1 = (0 if leaf[tr, 0] else int(left.sum())) + (
+                0 if leaf[tr, 1] else len(at) - int(left.sum()))
+            taken += n1
+            ops += n1 * int(node[tr, 1])
+            loads += n1 * 4 * int(rects[tr, 1])
+    check(entering[0] == n_valid, "K3 cost: every valid window enters")
+    counts = np.diff(ends)
+    seen = float(np.dot(entering, counts))
+    nbytes = (ii.numel() + ii2.numel()) * ii.element_size() + (
+        n_frames + 1) * plan.ny * plan.nx + sum(
+        a.nbytes for a in tables.host)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / flops * 1e3
+    both = node[:, 0] + 1 + np.where(leaf.all(axis=1), 0, node[:, 1])
+    no_exit_ms = n_valid * (OPS_PER_WINDOW + int(both.sum())) / flops * 1e3
+    l1_ms = loads / 32 / L1_WARP_LOADS_PER_S * 1e3
+    return {"windows": n_valid, "entering": entering, "trees": int(ends[-1]),
+            "trees_seen": seen / n_valid, "node1_share": taken / seen,
+            "ops_per_window": ops / n_valid, "bytes": nbytes,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "no_exit_ms": no_exit_ms,
+            "l1_ms": l1_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def phase_k3(xml, seed):
-    """K3 against its plain version at the stage program's real shapes."""
+    """K3 against its plain version at the stage program's real shapes:
+    float32 on a 16x256x256 clip (10 and all 20 stages) and float64 at the
+    shape the track path launches; both instances timed with their
+    bounds."""
     rng = np.random.default_rng(seed + 20)
     det = DeviceHaarDetector(xml, min_neighbors=3, device=DEVICE)
     check(det.early_stages == EARLY_STAGES, "10 early stages")
     n_all = len(det.cas.stage_thr)
 
-    def canvases(frames):
+    def canvases(frames, dtype, what):
         plan = det._plan(*frames.shape[1:])
         ii, ii2 = det._canvases(plan, torch.from_numpy(frames).to(DEVICE))
+        check(ii.dtype == dtype, f"K3 {what} canvases are {dtype}")
         return plan, ii, ii2
 
-    def compare(what, frames, dtype):
-        plan, ii, ii2 = canvases(frames)
-        check(ii.dtype == dtype, f"K3 {what} canvases are {dtype}")
+    def compare(what, plan, ii, ii2, n_stages, few=True):
+        """Kernel against plain, every byte; the plain call timed by CUDA
+        events (thousands of large elementwise kernels: device-bound)."""
         before = haar_stages.launches
-        got = haar_stages(ii, ii2, plan.valid, plan.tables, EARLY_STAGES)
+        got = haar_stages(ii, ii2, plan.grid, plan.tables, n_stages)
         torch.cuda.synchronize()
-        check(haar_stages.launches == before + 1, "one K3 launch per call")
-        want = haar_stages_plain(ii, ii2, plan.valid, plan.tables,
-                                 EARLY_STAGES)
+        check(haar_stages.launches == before + 1, "one K3 call counted")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = haar_stages_plain(ii, ii2, plan.grid.valid, plan.tables,
+                                 n_stages)
+        end.record()
+        torch.cuda.synchronize()
         differ = int((got != want).sum())
         check(got.dtype == torch.int8 and got.shape == (
-            len(frames), plan.ny, plan.nx), f"K3 {what} mask shape")
-        say("K3", case=what, canvas=f"{len(frames)}x{plan.canvas_h}x"
+            ii.shape[0], plan.ny, plan.nx), f"K3 {what} mask shape")
+        say("K3", case=what, canvas=f"{ii.shape[0]}x{plan.canvas_h}x"
             f"{plan.canvas_w}", grid=f"{plan.ny}x{plan.nx}",
-            trees=plan.tables.stage_end[EARLY_STAGES - 1],
-            survivors=int(got.sum()), differing_windows=differ)
+            trees=plan.tables.stage_end[n_stages - 1],
+            survivors=int(got.sum()), differing_windows=differ,
+            plain_ms_one_call=f"{start.elapsed_time(end):.3f}")
         check(differ == 0, f"K3 {what} mask equals the plain mask: {differ} "
                            f"windows differ")
-        check(0 < int(got.sum()) < got.numel() // 20,
-              f"K3 {what}: some windows survive, few")
-        return plan, ii, ii2, differ
+        if few:
+            check(0 < int(got.sum()) < got.numel() // 20,
+                  f"K3 {what}: some windows survive, few")
+        return differ, start.elapsed_time(end)
 
     sides = rng.integers(30, 140, K3_FRAMES)
     clip = np.stack([synthetic_cascade.planted_frame(
         rng, K3_SIZE, K3_SIZE, int(s), "noise")[0] for s in sides])
-    plan, ii, ii2, differ = compare("f32 16x256x256", clip, torch.float32)
+    plan, ii, ii2 = canvases(clip, torch.float32, "f32")
     check((len(plan.levels), plan.canvas_h, plan.canvas_w, plan.ny, plan.nx,
            plan.tables.stage_end[EARLY_STAGES - 1])
           == (27, 2662, 257, 2642, 237, 253), "K3 shapes at 16x256x256")
+    differ = compare("f32 16x256x256", plan, ii, ii2, EARLY_STAGES)[0]
+    differ += compare(f"f32 16x256x256 all {n_all} stages", plan, ii, ii2,
+                      n_all, few=False)[0]
     # the float64 instance at the shape the track path launches it: 360x480
     # frames letterboxed as detect_clips does, one dispatch's worth of them
     wide = np.stack([synthetic_cascade.planted_frame(
@@ -566,58 +692,52 @@ def phase_k3(xml, seed):
         [wide[np.arange(n_wide) % len(wide)]])).astype(np.uint8)
     check(wide.shape[1:] == (384, 480) and n_wide > 4,
           f"K3 track-path shape: {wide.shape}")
-    differ += compare(f"f64 {n_wide}x360x480 letterboxed to 384x480", wide,
-                      torch.float64)[3]
+    plan64, ii64, ii2_64 = canvases(wide, torch.float64, "f64")
+    d64, plain64_ms = compare(f"f64 {n_wide}x360x480 letterboxed to 384x480",
+                              plan64, ii64, ii2_64, EARLY_STAGES)
+    differ += d64
 
-    # how far a window gets: alive counts after 0..10 stages
-    n_valid = int(plan.valid.sum()) * K3_FRAMES
-    entering = [n_valid] + [int(haar_stages(
-        ii, ii2, plan.valid, plan.tables, n).sum())
-        for n in range(1, EARLY_STAGES)]
-    counts = np.diff((0,) + plan.tables.stage_end[:EARLY_STAGES])
-    trees_seen = float(np.dot(entering, counts)) / n_valid
-    n_trees = int(counts.sum())
-
-    args = (ii, ii2, plan.valid, plan.tables, EARLY_STAGES)
+    cost = k3_cost(plan, ii, ii2, K3_FRAMES, F32_FLOPS)
+    cost64 = k3_cost(plan64, ii64, ii2_64, n_wide, F64_FLOPS)
+    args = (ii, ii2, plan.grid, plan.tables, EARLY_STAGES)
+    args64 = (ii64, ii2_64, plan64.grid, plan64.tables, EARLY_STAGES)
     ms = graph_ms(haar_stages, [args] * 4)
-    plain_ms = event_ms(haar_stages_plain, [args], warmup=1, reps=2)
+    plain_ms = event_ms(lambda ii, ii2, grid, tables, n: haar_stages_plain(
+        ii, ii2, grid.valid, tables, n), [args], warmup=1, reps=2)
     ms_all = graph_ms(haar_stages, [args[:4] + (n_all,)] * 4)
+    ms64 = graph_ms(haar_stages, [args64] * 4)
     ms2 = graph_ms(haar_stages, [args] * 4)
     kernel_ms = min(ms, ms2)
-    # bytes: both canvases, the grid's validity and the tables read once,
-    # the mask written once. Operations: the normalizer of every valid
-    # window and 35 a tree, for the trees this clip's windows see (the exit
-    # is part of the function's work on this data) and, as an aside, for all
-    # 253 with no exit. Aside: the corner loads as L1 transactions, one per
-    # warp and load, node 1 counted for every tree.
-    nbytes = (ii.numel() + ii2.numel()) * ii.element_size() + (
-        K3_FRAMES + 1) * plan.ny * plan.nx + sum(
-        a.nbytes for a in plan.tables.host)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_valid * (OPS_PER_WINDOW + trees_seen * OPS_PER_TREE
-                        ) / F32_FLOPS * 1e3
-    no_exit_ms = n_valid * (OPS_PER_WINDOW + n_trees * OPS_PER_TREE
-                            ) / F32_FLOPS * 1e3
-    rects = float((plan.tables.host[1][:n_trees] != 0).sum()) / n_trees
-    l1_ms = n_valid * (8 + trees_seen * rects * 4) / 32 / (
-        L1_WARP_LOADS_PER_S) * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    say("K3", windows=n_valid, entering_stage=",".join(map(str, entering)),
-        mean_trees_per_window=f"{trees_seen:.3f}", of=n_trees,
-        kernel_ms=f"{ms:.5f},{ms2:.5f}", plain_ms=f"{plain_ms:.3f}",
-        kernel_ms_all_20_stages=f"{ms_all:.5f}", library_ms="none",
-        bound_ms=f"{bound_ms:.5f}", bound_bytes_ms=f"{bytes_ms:.5f}",
-        bound_ops_ms_measured_trees=f"{ops_ms:.5f}",
-        aside_ops_ms_no_exit=f"{no_exit_ms:.5f}",
-        aside_l1_corner_loads_ms=f"{l1_ms:.5f}",
-        bound_share=f"{bound_ms / kernel_ms:.3f}")
+    for name, c, t, p in (("f32 16x256x256", cost, f"{ms:.5f},{ms2:.5f}",
+                           f"{plain_ms:.3f}"),
+                          (f"f64 {n_wide}x384x480", cost64, f"{ms64:.5f}",
+                           f"{plain64_ms:.3f}")):
+        say("K3", case=name, windows=c["windows"],
+            entering_stage=",".join(map(str, c["entering"])),
+            mean_trees_per_window=f"{c['trees_seen']:.3f}", of=c["trees"],
+            node1_share=f"{c['node1_share']:.4f}",
+            ops_per_window=f"{c['ops_per_window']:.2f}", kernel_ms=t, plain_ms=p, library_ms="none",
+            bound_ms=f"{c['bound_ms']:.5f}", bound_by=c["bound_by"],
+            bound_bytes_ms=f"{c['bytes_ms']:.5f}",
+            bound_ops_ms=f"{c['ops_ms']:.5f}",
+            aside_ops_ms_no_exit=f"{c['no_exit_ms']:.5f}",
+            aside_l1_corner_loads_ms=f"{c['l1_ms']:.5f}")
+    say("K3", kernel_ms_all_20_stages=f"{ms_all:.5f}",
+        bound_share=f"{cost['bound_ms'] / kernel_ms:.3f}",
+        f64_bound_share=f"{cost64['bound_ms'] / ms64:.3f}")
     return {"max_abs_err": float(differ), "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
+            "plain_ms": plain_ms, "bound_ms": cost["bound_ms"],
+            "bound_by": cost["bound_by"], "library_ms": None,
             "library_call": "none: no single PyTorch call evaluates a "
                             "cascade over a window grid",
-            "ms_all_20_stages": ms_all, "mean_trees_per_window": trees_seen}
+            "ms_all_20_stages": ms_all,
+            "mean_trees_per_window": cost["trees_seen"],
+            "f64_track_shape": {
+                "canvas": f"{n_wide}x{plan64.canvas_h}x{plan64.canvas_w}",
+                "ms": ms64, "plain_ms": plain64_ms,
+                "bound_ms": cost64["bound_ms"],
+                "bound_by": cost64["bound_by"],
+                "mean_trees_per_window": cost64["trees_seen"]}}
 
 
 def iou(a, b):
@@ -734,6 +854,10 @@ def phase_track(xml, seed, workdir, profile=False):
     watch.wrap(DeviceHaarDetector, "_plan", "plan")   # inside detect, once
     watch.wrap(tpipe, "process_video", "track")
     watch.wrap(tpipe, "_write_crop", "write")
+    shapes = []                        # K4's images, every level and call
+    real_refine = kflow.lk_refine
+    kflow.lk_refine = lambda img1, *a, **kw: (
+        shapes.append(tuple(img1.shape)) or real_refine(img1, *a, **kw))
     profiler = cProfile.Profile() if profile else None
     reset_counts()
     t = time.perf_counter()
@@ -744,6 +868,7 @@ def phase_track(xml, seed, workdir, profile=False):
         stats = profiler.runcall(run) if profile else run()
     finally:
         watch.restore()
+        kflow.lk_refine = real_refine
     torch.cuda.synchronize()
     total_ms = (time.perf_counter() - t) * 1e3
     launches = read_counts()
@@ -789,7 +914,12 @@ def phase_track(xml, seed, workdir, profile=False):
                                                  "write")),
         detect_plan_ms_once=f"{watch.seconds.get('plan', 0.0) * 1e3:.1f}",
         centre_err_px=",".join(f"{o:.2f}" for o in offsets),
-        centre_tolerance_px=CENTRE_TOL_PX, launches=launches)
+        centre_tolerance_px=CENTRE_TOL_PX, launches=launches,
+        k4_images=dict(collections.Counter(
+            "x".join(map(str, s)) for s in shapes)))
+    check(max(shapes) == (1, TRACK_BUCKET, TRACK_BUCKET),
+          f"K4's largest image in track is the {TRACK_BUCKET}-px bucket "
+          f"phase K4 times: {max(shapes)}")
     return crop_paths, launches
 
 

@@ -14,6 +14,8 @@
 //     dt = t1 - t0     b1 = -sum(dt * gx)     b2 = -sum(dt * gy)
 //     du = (a22 b1 - a12 b2) / max(det, 1e-6)
 //     dv = (a11 b2 - a12 b1) / max(det, 1e-6)     (both 0 where det <= 1e-6)
+//     (here: times the reciprocal of max(det, 1e-6), within 1.5 ulp of the
+//     quotient)
 //     fx += du, fy += dv
 //
 // img1 (B, H, W) float32 with element strides (sb, sh, sw); t0, gx, gy
@@ -22,38 +24,50 @@
 //
 // Bound: bytes, nominally. Each launch reads the three window arrays and
 // img1 once: at B = 8, K = 200, win = 15 on 224x224 images that is
-// 4.3 MB + 1.6 MB, under 2 us at 3.35 TB/s, and its ~14 flops per window
-// element and step are under 1 us of float32 rate. Neither is what the
-// kernel waits for: each corner is a chain of `iters` steps, every one a
-// window gather, a block-wide reduction and a 2x2 solve that the next step's
-// addresses depend on, so the real floor is iters x (one L2/L1 gather + one
-// reduction) plus the launch.
+// 4.3 MB + 1.6 MB, under 2 us at 3.35 TB/s (one pair: 0.2 us), and its ~14
+// flops per window element and step are under 1 us of float32 rate. Neither
+// is what the kernel waits for: each corner is a chain of `iters` steps,
+// every one a window gather, a reduction and a 2x2 solve that the next
+// step's addresses depend on, so the floor is the launch plus iters x (one
+// L1 gather + one reduction).
 //
-// Design: the TPU kernel walked the corners one after another on one core
-// and fetched each window as an 8-row-aligned slab plus two one-hot matmuls,
-// because its vector unit cannot index unaligned; its 24-row minimum image
-// height came from that. None of it carries over. Corners are independent,
-// so the grid is (K, B): one block per corner per pair, all resident at
-// once. A block has 256 threads, one per window element (225 live at
-// win = 15; up to kMaxPerThread elements per thread serve win <= 32). Each
-// thread keeps its t0, gx, gy elements in registers for all steps, reads its
-// four img1 neighbours through the read-only path, and the block reduces the
-// two sums with warp shuffles and 16 floats of shared memory (double-buffered
-// by step parity, so one barrier per step). Every thread then applies the
-// same solve to the same sums, so the flow lives in registers and is
-// bit-identical across the block with no broadcast; thread 0 writes it after
-// the last step. win, iters, H, W and the strides are run-time arguments: one
-// build serves every level and crop bucket.
+// What held the first design back (one 256-thread block per corner per
+// pair, one window element a thread): every step ended in a __syncthreads
+// and a shared-memory pass over 8 warp partials; 8 blocks fit on an SM, so
+// 8 pairs x 200 corners ran in two waves; one pair's 200 blocks left most
+// SMs with one block.
+//
+// This design: one warp per corner, kCornersPerBlock corners a block. The
+// window's elements are spread over the 32 lanes, kPer a lane (a template
+// parameter: 8 for win <= 16, 32 for win <= 32), element e = lane + 32 q,
+// each lane keeping its t0, gx, gy and in-window offsets in registers for
+// all steps. A step's two sums are reduced by an xor butterfly of
+// __shfl_xor_sync: at every level both partners add the same two values, so
+// every lane ends with bit-identical sums and applies the same solve; the
+// flow stays in registers on every lane with no barrier and no shared
+// memory, and lane 0 writes it after the last step. The grid is (corners /
+// kCornersPerBlock, pairs): 8 pairs x 200 corners are 800 blocks of 2 warps,
+// one wave; one pair's 100 blocks sit on 100 SMs (4 corners a block measured
+// a little slower at both shapes, 1 and 2 alike). Every load is
+// unconditional (see below), so a step's loads are issued together: a
+// first cut with each element's loads inside its own branch was slower
+// than the first design at one pair, its gathers issued one after another.
+// The determinant's reciprocal is taken once per corner, not divided by
+// twice a step. win, iters, H, W and the strides are run-time arguments: one build
+// serves every level and crop bucket.
+//
+// ptxas (sm_90a, -O3; CUDA 12.8): kPer = 8 80 registers, kPer = 32 255,
+// no spills, no shared memory. chip_smoke.py's build phase prints it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPerThread = 4;          // win * win <= 1024, win <= 32
+constexpr int kCornersPerBlock = 2;
+constexpr int kThreads = 32 * kCornersPerBlock;
 
+template <int kPer>
 __global__ void __launch_bounds__(kThreads)
 lk_refine_kernel(const float* __restrict__ img1, const float* __restrict__ t0,
                  const float* __restrict__ gx, const float* __restrict__ gy,
@@ -62,29 +76,41 @@ lk_refine_kernel(const float* __restrict__ img1, const float* __restrict__ t0,
                  const float* __restrict__ flow_in,
                  float* __restrict__ flow_out, int n_corners, int h, int w,
                  int64_t sb, int64_t sh, int64_t sw, int win, int iters) {
-  __shared__ float partial[2][kWarps][2];
-  const int k = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int k = blockIdx.x * kCornersPerBlock + (threadIdx.x >> 5);
+  if (k >= n_corners) return;                       // the whole warp leaves
   const int b = blockIdx.y;
   const int64_t corner = static_cast<int64_t>(b) * n_corners + k;
   const int area = win * win;
   const int m = win + 1;
   const float r = static_cast<float>(win / 2);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
 
-  float t0_e[kMaxPerThread], gx_e[kMaxPerThread], gy_e[kMaxPerThread];
-  int64_t off_e[kMaxPerThread];           // (i, j) offset inside the window
+  // Elements past the window read its last element and get zero template
+  // and gradients, so they add exact zeros to the sums: every load below is
+  // unconditional, and a step's kPer x 4 image loads are issued together.
+  float t0_e[kPer], gx_e[kPer], gy_e[kPer];
+  int off_e[kPer];                      // (i, j) offset inside the window
+  const int step_i = 32 / win, step_j = 32 % win;   // e += 32
+  int i = lane / win, j = lane % win;
 #pragma unroll
-  for (int q = 0; q < kMaxPerThread; ++q) {
-    const int e = threadIdx.x + q * kThreads;
-    const bool live = e < area;
-    const int64_t at = corner * area + e;
-    t0_e[q] = live ? __ldg(t0 + at) : 0.0f;
-    gx_e[q] = live ? __ldg(gx + at) : 0.0f;
-    gy_e[q] = live ? __ldg(gy + at) : 0.0f;
-    const int i = live ? e / win : 0;
-    const int j = live ? e - i * win : 0;
-    off_e[q] = i * sh + j * sw;
+  for (int q = 0; q < kPer; ++q) {
+    const bool live = lane + 32 * q < area;
+    const int el = live ? lane + 32 * q : area - 1;
+    const int64_t at = corner * area + el;
+    const float t0v = __ldg(t0 + at);
+    const float gxv = __ldg(gx + at);
+    const float gyv = __ldg(gy + at);
+    t0_e[q] = live ? t0v : 0.0f;
+    gx_e[q] = live ? gxv : 0.0f;
+    gy_e[q] = live ? gyv : 0.0f;
+    off_e[q] = live ? static_cast<int>(i * sh + j * sw)
+                    : static_cast<int>((win - 1) * (sh + sw));
+    i += step_i;
+    j += step_j;
+    if (j >= win) {
+      j -= win;
+      ++i;
+    }
   }
 
   const float a11 = __ldg(amat + corner * 4 + 0);
@@ -92,7 +118,7 @@ lk_refine_kernel(const float* __restrict__ img1, const float* __restrict__ t0,
   const float a22 = __ldg(amat + corner * 4 + 2);
   const float det = __ldg(amat + corner * 4 + 3);
   const bool ok = det > 1e-6f;
-  const float safe_det = fmaxf(det, 1e-6f);
+  const float inv_det = 1.0f / fmaxf(det, 1e-6f);
   const float px = __ldg(pts + corner * 2 + 0);
   const float py = __ldg(pts + corner * 2 + 1);
   float fx = __ldg(flow_in + corner * 2 + 0);
@@ -116,41 +142,27 @@ lk_refine_kernel(const float* __restrict__ img1, const float* __restrict__ t0,
                         static_cast<int64_t>(bxf) * sw;
     float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
-    for (int q = 0; q < kMaxPerThread; ++q) {
-      if (threadIdx.x + q * kThreads < area) {
-        const float* p = base + off_e[q];
-        const float t1 = w00 * __ldg(p) + w01 * __ldg(p + sw) +
-                         w10 * __ldg(p + sh) + w11 * __ldg(p + sh + sw);
-        const float dt = t1 - t0_e[q];
-        s1 += dt * gx_e[q];
-        s2 += dt * gy_e[q];
-      }
+    for (int q = 0; q < kPer; ++q) {
+      const float* p = base + off_e[q];
+      const float t1 = w00 * __ldg(p) + w01 * __ldg(p + sw) +
+                       w10 * __ldg(p + sh) + w11 * __ldg(p + sh + sw);
+      const float dt = t1 - t0_e[q];
+      s1 += dt * gx_e[q];
+      s2 += dt * gy_e[q];
     }
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1) {
       s1 += __shfl_xor_sync(0xffffffffu, s1, d);
       s2 += __shfl_xor_sync(0xffffffffu, s2, d);
     }
-    float (*buf)[2] = partial[it & 1];
-    if (lane == 0) {
-      buf[warp][0] = s1;
-      buf[warp][1] = s2;
-    }
-    __syncthreads();
-    float b1 = 0.0f, b2 = 0.0f;
-#pragma unroll
-    for (int v = 0; v < kWarps; ++v) {
-      b1 += buf[v][0];
-      b2 += buf[v][1];
-    }
-    b1 = -b1;
-    b2 = -b2;
-    const float du = ok ? (a22 * b1 - a12 * b2) / safe_det : 0.0f;
-    const float dv = ok ? (a11 * b2 - a12 * b1) / safe_det : 0.0f;
+    const float b1 = -s1;
+    const float b2 = -s2;
+    const float du = ok ? (a22 * b1 - a12 * b2) * inv_det : 0.0f;
+    const float dv = ok ? (a11 * b2 - a12 * b1) * inv_det : 0.0f;
     fx += du;
     fy += dv;
   }
-  if (threadIdx.x == 0) {
+  if (lane == 0) {
     flow_out[corner * 2 + 0] = fx;
     flow_out[corner * 2 + 1] = fy;
   }
@@ -168,12 +180,17 @@ extern "C" int lk_refine_launch(const void* img1, const void* t0,
                                 long long sb, long long sh, long long sw,
                                 int win, int iters, void* stream) {
   if (n_pairs <= 0 || n_corners <= 0) return static_cast<int>(cudaSuccess);
-  if (win < 1 || win * win > kThreads * kMaxPerThread || h < win + 1 ||
-      w < win + 1 || n_pairs > 65535 || iters < 0)
+  const int blocks = (n_corners + kCornersPerBlock - 1) / kCornersPerBlock;
+  // in-window offsets are kept as 32-bit ints
+  const long long reach = static_cast<long long>(win) *
+                          ((sh < 0 ? -sh : sh) + (sw < 0 ? -sw : sw));
+  if (win < 1 || win > 32 || h < win + 1 || w < win + 1 ||
+      n_pairs > 65535 || iters < 0 || reach > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(n_corners),
-            static_cast<unsigned>(n_pairs));
-  lk_refine_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kernel = win * win <= 8 * 32 ? lk_refine_kernel<8>
+                                    : lk_refine_kernel<32>;
+  kernel<<<dim3(blocks, n_pairs), kThreads, 0, s>>>(
       static_cast<const float*>(img1), static_cast<const float*>(t0),
       static_cast<const float*>(gx), static_cast<const float*>(gy),
       static_cast<const float*>(amat), static_cast<const float*>(pts),

@@ -11,7 +11,8 @@ computed once by the caller (kernels/flow.py lk_flow_batch); only the
 resample of img1 iterates.
 
 On CUDA tensors the wrapper launches the hand-written kernel
-csrc/lk_refine.cu (arithmetic, bound and design are noted there). On CPU
+csrc/lk_refine.cu (one warp per corner; arithmetic, bound and design are
+noted there). On CPU
 tensors it takes the plain PyTorch version below, which the CPU tests hold
 against the JAX kernel in interpret mode and the card run holds the kernel
 against. There is no fallback from one to the other.
@@ -26,7 +27,7 @@ import torch
 from gifgan_tpu_torch.kernels import _build
 
 NAME = "lk_refine"
-MAX_WIN = 32                      # csrc/lk_refine.cu: win * win <= 1024
+MAX_WIN = 32               # csrc/lk_refine.cu: at most 32 elements a lane
 
 
 def bilinear_windows(imgs: torch.Tensor, pts: torch.Tensor,
@@ -113,6 +114,9 @@ def _check(img1, t0, gx, gy, amat, pts, flow, win: int, iters: int) -> None:
         if tuple(tensors[name].shape) != tuple(shape):
             raise ValueError(f"{name} must be {tuple(shape)}, got shape "
                              f"{tuple(tensors[name].shape)}")
+    for name, t in tensors.items():
+        if name != "img1" and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 _fn = None
@@ -146,10 +150,6 @@ def lk_refine(img1: torch.Tensor, t0: torch.Tensor, gx: torch.Tensor,
         return lk_refine_plain(img1, t0, gx, gy, amat, pts, flow, win, iters)
     if img1.device.type != "cuda":
         raise ValueError(f"no kernel for device {img1.device}")
-    for name, t in dict(t0=t0, gx=gx, gy=gy, amat=amat, pts=pts,
-                        flow=flow).items():
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     b, h, w = img1.shape
     k = t0.shape[1]
     if b > 65535:

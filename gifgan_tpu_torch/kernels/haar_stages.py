@@ -1,7 +1,7 @@
 """K3: the first stages of a Haar cascade over every window of a packed
 pyramid canvas.
 
-`haar_stages(ii, ii2, valid, tables, n_stages, stride)` computes, for every
+`haar_stages(ii, ii2, grid, tables, n_stages, stride)` computes, for every
 frame and every window origin of the canvas grid, the window's variance
 normalizer from the integral canvases and then the cascade's first
 `n_stages` stages (depth-2 trees over sums of two or three rectangles),
@@ -11,8 +11,10 @@ DeviceHaarDetector._build_stage_kernel (:426, pallas_call :573). The canvas
 layout, the window grid and the survivors' finish are track/haar_device.py's.
 
 On CUDA tensors the wrapper launches the hand-written kernel
-csrc/haar_stages.cu (one thread per window, leaving at the first stage it
-fails; arithmetic, bound and design are noted there). On CPU tensors it takes
+csrc/haar_stages.cu (one block per 32x32 tile of the list of valid windows,
+survivors compacted in shared memory after every stage, each tree one
+packed record; arithmetic, bound and design are noted there), once per
+call, into a zero-filled mask. On CPU tensors it takes
 the plain PyTorch version below: the strided-slice formulation of the JAX
 package's `_unrolled_stages` (haar_device.py:121), every operation in the
 same order, no exit. The CPU tests hold it against the JAX package's mask and
@@ -35,19 +37,98 @@ _DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 class StageTables(NamedTuple):
-    """The per-tree tables of a whole cascade, as numpy arrays (`host`, in
-    the order geo, wts, thr, leaf, flg, is_last, sthr) and as tensors on one
-    device (`dev`, same order), with the window and the furthest corner
-    offsets any entry reaches. `stage_end[s]` is the tree count of the first
-    s + 1 stages."""
+    """The per-tree tables of a whole cascade: as numpy arrays (`host`, in
+    the order geo, wts, thr, leaf, flg, is_last, sthr) for the plain
+    version, and on one device as the kernel reads them: `records`, one
+    packed record per tree (`pack_records`, uint8 (N, record size)), and
+    `ends`, `stage_end` as int32. `stage_end[s]` is the tree count of the
+    first s + 1 stages; `dtype` is the canvases' type the values are
+    rounded to. Also the window and the furthest corner offsets any entry
+    reaches."""
 
     host: tuple
-    dev: tuple
+    records: torch.Tensor
+    ends: torch.Tensor
+    dtype: torch.dtype
     stage_end: tuple
     window_w: int
     window_h: int
     ext_x: int
     ext_y: int
+
+
+# Bits of a record's flags: node 0's left child is a leaf, its right child
+# is a leaf, the tree ends a stage.
+LEFT_LEAF, RIGHT_LEAF, ENDS_STAGE = 1, 2, 4
+
+
+def record_dtype(dtype) -> np.dtype:
+    """The numpy layout of one tree's record, csrc/haar_stages.cu
+    TreeRecord<T>: int32 geo[6] (node n's rect r at 3 n + r, packed as in
+    `cascade_tables_rolled`), flags, pad, then in the canvases' type
+    wts[6], thr[2], leaf[4], sthr; 16-byte aligned, 96 bytes in float32 and
+    144 in float64."""
+    t = np.dtype(dtype)
+    f = t.itemsize
+    return np.dtype({
+        "names": ["geo", "flags", "pad", "wts", "thr", "leaf", "sthr"],
+        "formats": [(np.int32, (6,)), np.int32, np.int32, (t, (6,)),
+                    (t, (2,)), (t, (4,)), t],
+        "offsets": [0, 24, 28, 32, 32 + 6 * f, 32 + 8 * f, 32 + 12 * f],
+        "itemsize": -(-(32 + 13 * f) // 16) * 16})
+
+
+def pack_records(host: tuple, dtype) -> np.ndarray:
+    """`cascade_tables_rolled`'s arrays (geo, wts, thr, leaf, flg, is_last,
+    sthr) in `dtype` -> (N, record size) uint8, one record per tree, the
+    same values laid out as the kernel reads them."""
+    geo, wts, thr, leaf, flg, is_last, sthr = host
+    rec = np.zeros(len(geo), record_dtype(dtype))
+    rec["geo"] = geo.reshape(-1, 6)
+    rec["flags"] = ((flg[:, 0] != 0) * LEFT_LEAF + (flg[:, 1] != 0)
+                    * RIGHT_LEAF + (is_last != 0) * ENDS_STAGE)
+    rec["wts"] = wts.reshape(-1, 6)
+    rec["thr"] = thr
+    rec["leaf"] = leaf
+    rec["sthr"] = sthr
+    return rec.view(np.uint8).reshape(len(geo), -1)
+
+
+def corner_extent(cas, rects: np.ndarray) -> tuple:
+    """(ext_x, ext_y): the furthest corner offsets from a window's origin
+    that the cascade's window or any of its rects (`rects` as for
+    `cascade_tables_rolled`) reaches."""
+    return (int(max(cas.window_w, (rects[:, :, 0] + rects[:, :, 2]).max())),
+            int(max(cas.window_h, (rects[:, :, 1] + rects[:, :, 3]).max())))
+
+
+# Side of the square tiles of grid cells the valid-window list is ordered
+# by: a tile is one run of csrc/haar_stages.cu, whose compiled kRun must be
+# TILE * TILE (the wrapper passes it and the launch refuses another), so a
+# block's corner loads stay inside (TILE + 20)^2 canvas values.
+TILE = 32
+
+
+class WindowGrid(NamedTuple):
+    """A canvas grid as both sides of K3 read it: `valid` (ny, nx) int8 for
+    the plain version, and `cells` (n, 2) int32, the (gy, gx) of its valid
+    windows in tile order, for the kernel. Made by `window_grid` only, so
+    the two cannot come from different grids."""
+
+    valid: torch.Tensor
+    cells: torch.Tensor
+
+
+def window_grid(valid: torch.Tensor) -> WindowGrid:
+    """valid (ny, nx) int8 -> the WindowGrid of it, built once per grid on
+    valid's device (`torch.nonzero`, which waits for the device). The cells
+    are those of `torch.nonzero(valid)`, ordered by TILE x TILE tile of the
+    grid (tiles in row-major order, cells row-major inside a tile)."""
+    cells = torch.nonzero(valid)
+    tiles_x = -(-valid.shape[1] // TILE)
+    tile = (cells[:, 0] // TILE) * tiles_x + cells[:, 1] // TILE
+    order = torch.argsort(tile, stable=True)
+    return WindowGrid(valid, cells[order].to(torch.int32).contiguous())
 
 
 def cascade_tables_rolled(cas, rects: np.ndarray, n_stages: int,
@@ -114,11 +195,12 @@ def stage_tables(cas, rects: np.ndarray, dtype: torch.dtype,
     `rects` as for `cascade_tables_rolled`."""
     host = cascade_tables_rolled(cas, rects, len(cas.stage_thr),
                                  _DTYPES[dtype])[1:]
-    ext_x = int(max(cas.window_w, (rects[:, :, 0] + rects[:, :, 2]).max()))
-    ext_y = int(max(cas.window_h, (rects[:, :, 1] + rects[:, :, 3]).max()))
-    dev = tuple(torch.from_numpy(a).to(device) for a in host)
+    ext_x, ext_y = corner_extent(cas, rects)
     ends = tuple(int(v) for v in cas.stage_first + cas.stage_count)
-    return StageTables(host, dev, ends, int(cas.window_w), int(cas.window_h),
+    records = torch.from_numpy(pack_records(host, _DTYPES[dtype])).to(device)
+    return StageTables(host, records,
+                       torch.tensor(ends, dtype=torch.int32, device=device),
+                       dtype, ends, int(cas.window_w), int(cas.window_h),
                        ext_x, ext_y)
 
 
@@ -189,9 +271,14 @@ def haar_stages_plain(ii: torch.Tensor, ii2: torch.Tensor,
     return alive.to(torch.int8)
 
 
-def _check(ii, ii2, valid, tables: StageTables, n_stages: int,
+def _check(ii, ii2, grid, tables: StageTables, n_stages: int,
            stride: int) -> None:
-    for name, t in (("ii", ii), ("ii2", ii2), ("valid", valid)):
+    if not isinstance(grid, WindowGrid):
+        raise ValueError(f"grid must be window_grid(valid), got "
+                         f"{type(grid).__name__}")
+    valid, cells = grid
+    for name, t in (("ii", ii), ("ii2", ii2), ("valid", valid),
+                    ("cells", cells)):
         if not isinstance(t, torch.Tensor):
             raise ValueError(f"{name} must be a torch.Tensor")
         if t.device != ii.device:
@@ -205,9 +292,16 @@ def _check(ii, ii2, valid, tables: StageTables, n_stages: int,
     if valid.ndim != 2 or valid.dtype != torch.int8:
         raise ValueError(f"valid must be (ny, nx) int8, got "
                          f"{tuple(valid.shape)} {valid.dtype}")
-    if tables.dev[1].dtype != ii.dtype or tables.dev[1].device != ii.device:
-        raise ValueError(f"tables are {tables.dev[1].dtype} on "
-                         f"{tables.dev[1].device}, the canvases {ii.dtype} "
+    if (cells.ndim != 2 or cells.shape[1] != 2 or cells.dtype != torch.int32
+            or cells.shape[0] > valid.numel()):
+        raise ValueError(f"cells must be (n, 2) int32 from window_grid, got "
+                         f"{tuple(cells.shape)} {cells.dtype}")
+    if (tables.dtype != ii.dtype or tables.records.device != ii.device
+            or tables.records.dtype != torch.uint8
+            or tables.records.shape[1] != record_dtype(
+                _DTYPES[tables.dtype]).itemsize):
+        raise ValueError(f"tables are {tables.dtype} records on "
+                         f"{tables.records.device}, the canvases {ii.dtype} "
                          f"on {ii.device}")
     if not 0 <= n_stages <= len(tables.stage_end):
         raise ValueError(f"n_stages must be in [0, {len(tables.stage_end)}]"
@@ -220,6 +314,10 @@ def _check(ii, ii2, valid, tables: StageTables, n_stages: int,
             or (nx - 1) * stride + tables.ext_x > cw - 1):
         raise ValueError(f"a ({ny}, {nx}) grid at stride {stride} reaches "
                          f"past the ({ch}, {cw}) canvas")
+    for name, t in (("ii", ii), ("ii2", ii2), ("valid", valid),
+                    ("cells", cells)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 _fn = None
@@ -230,48 +328,49 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load(NAME).haar_stages_launch
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [
-            ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def haar_stages(ii: torch.Tensor, ii2: torch.Tensor, valid: torch.Tensor,
+def haar_stages(ii: torch.Tensor, ii2: torch.Tensor, grid: WindowGrid,
                 tables: StageTables, n_stages: int,
                 stride: int = 1) -> torch.Tensor:
-    """ii, ii2 (T, canvas_h, canvas_w) float32 or float64, valid (ny, nx)
-    int8, `tables` from `stage_tables` in the same type on the same device
-    -> (T, ny, nx) int8, 1 where the window is valid and passes the first
-    `n_stages` stages.
+    """ii, ii2 (T, canvas_h, canvas_w) float32 or float64, grid =
+    window_grid(valid) for the (ny, nx) int8 validity grid, `tables` from
+    `stage_tables` in the same type on the same device -> (T, ny, nx) int8,
+    1 where the window is valid and passes the first `n_stages` stages.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel, once
-    for all frames (counted in `haar_stages.launches`); anything else
-    raises. The tensors must be contiguous."""
-    _check(ii, ii2, valid, tables, n_stages, stride)
+    CPU tensors take the plain version, which reads `grid.valid`; CUDA
+    tensors launch the kernel, which walks `grid.cells` (and skips a cell
+    outside the grid), once for all frames (one kernel launch per call,
+    counted in `haar_stages.launches`); anything else raises. The tensors
+    must be contiguous."""
+    _check(ii, ii2, grid, tables, n_stages, stride)
+    valid, cells = grid
     if ii.device.type == "cpu":
         return haar_stages_plain(ii, ii2, valid, tables, n_stages, stride)
     if ii.device.type != "cuda":
         raise ValueError(f"no kernel for device {ii.device}")
-    for name, t in (("ii", ii), ("ii2", ii2), ("valid", valid)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     t, ch, cw = ii.shape
     ny, nx = valid.shape
     if t > 65535:
         raise ValueError(f"at most 65535 frames per launch, got {t}")
     fn = _kernel()
-    alive = torch.empty((t, ny, nx), dtype=torch.int8, device=ii.device)
-    if alive.numel() == 0:
+    alive = torch.zeros((t, ny, nx), dtype=torch.int8, device=ii.device)
+    if alive.numel() == 0 or cells.shape[0] == 0:
         return alive
-    n_trees = tables.stage_end[n_stages - 1] if n_stages else 0
     with torch.cuda.device(ii.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ii.data_ptr(), ii2.data_ptr(), valid.data_ptr(),
-                 *(a.data_ptr() for a in tables.dev), alive.data_ptr(), t,
-                 ch, cw, ny, nx, stride, n_trees, tables.window_w,
-                 tables.window_h, tables.ext_y, tables.ext_x,
-                 int(ii.dtype == torch.float64), stream)
+        err = fn(ii.data_ptr(), ii2.data_ptr(), cells.data_ptr(),
+                 cells.shape[0], TILE * TILE, tables.records.data_ptr(),
+                 tables.ends.data_ptr(), alive.data_ptr(), t, ch, cw, ny, nx,
+                 stride, n_stages, tables.window_w, tables.window_h,
+                 tables.ext_y, tables.ext_x, int(ii.dtype == torch.float64),
+                 stream)
     if err != 0:
         raise RuntimeError(f"{NAME} launch failed: CUDA error {err}")
     haar_stages.launches += 1

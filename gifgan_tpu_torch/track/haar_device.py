@@ -42,8 +42,9 @@ import numpy as np
 import torch
 
 from gifgan_tpu_torch import resolve_device
-from gifgan_tpu_torch.kernels.haar_stages import (StageTables, haar_stages,
-                                                  stage_tables)
+from gifgan_tpu_torch.kernels.haar_stages import (StageTables, WindowGrid,
+                                                  corner_extent, haar_stages,
+                                                  stage_tables, window_grid)
 from gifgan_tpu_torch.track.haar import (HaarCascade, _eval_stages,
                                          _scaled_rects, group_rectangles,
                                          integral_images,
@@ -116,9 +117,10 @@ def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 class _Plan(NamedTuple):
     """What one frame size needs, built once: the level plan, the canvas
-    and grid shapes, the grid's validity and level ids, the resize matrices
-    (numpy float64 for the numpy finisher, tensors in the canvas type for
-    the card), and K3's tables."""
+    and grid shapes, the grid (its validity and the list of its valid
+    cells, K3's work list, made on the device) and level ids, the resize
+    matrices (numpy float64 for the numpy finisher, tensors in the canvas
+    type for the card), and K3's tables."""
 
     levels: List[_Level]
     canvas_h: int
@@ -128,7 +130,7 @@ class _Plan(NamedTuple):
     level_id: np.ndarray
     np_mats: list
     dtype: torch.dtype
-    valid: torch.Tensor
+    grid: WindowGrid
     mats: list
     tables: StageTables
 
@@ -199,10 +201,9 @@ class DeviceHaarDetector:
         self.rects0 = _scaled_rects(self.cas, 1.0)
         self._plans: Dict[Tuple[int, int], Optional[_Plan]] = {}
         self._tables: Dict[torch.dtype, StageTables] = {}
-        # the furthest corner any table entry reaches: the tables' own
-        # figures, so the grid here and the launch check agree
-        first = self._stage_tables(torch.float32)
-        self.ext_x, self.ext_y = first.ext_x, first.ext_y
+        # the furthest corner any table entry reaches: the figures the
+        # tables carry, so the grid here and the launch check agree
+        self.ext_x, self.ext_y = corner_extent(self.cas, self.rects0)
 
     # -- plan construction ------------------------------------------------
 
@@ -256,8 +257,9 @@ class DeviceHaarDetector:
                  torch.from_numpy(np.ascontiguousarray(mw.T)).to(
                      self.device, dtype)) for mh, mw in np_mats]
         plan = _Plan(levels, canvas_h, canvas_w, ny, nx, level_id, np_mats,
-                     dtype, torch.from_numpy(valid.astype(np.int8)).to(
-                         self.device), mats, self._stage_tables(dtype))
+                     dtype, window_grid(torch.from_numpy(valid.astype(
+                         np.int8)).to(self.device)), mats,
+                     self._stage_tables(dtype))
         self._plans[key] = plan
         return plan
 
@@ -309,7 +311,7 @@ class DeviceHaarDetector:
             chunk = torch.from_numpy(
                 np.ascontiguousarray(frames_u8[i:i + step])).to(self.device)
             ii, ii2 = self._canvases(plan, chunk)
-            masks.append(haar_stages(ii, ii2, plan.valid, plan.tables,
+            masks.append(haar_stages(ii, ii2, plan.grid, plan.tables,
                                      self.early_stages, self.stride))
         return masks[0] if len(masks) == 1 else torch.cat(masks)
 

@@ -252,7 +252,9 @@ def _bad_refine_args():
             ("amat-shape", 4, good[4][..., :3]),
             ("pts-dtype", 5, good[5].double()),
             ("flow-shape", 6, good[6][:, :2]),
-            ("device", 3, good[3].to("meta"))]:
+            ("device", 3, good[3].to("meta")),
+            ("gx-not-contiguous", 2, good[2].transpose(2, 3).contiguous(
+                ).transpose(2, 3))]:
         args = list(good)
         args[pos] = bad
         cases[name] = (args, 15)
@@ -263,8 +265,8 @@ def _bad_refine_args():
 
 @pytest.mark.parametrize("name", ["img1-rank", "t0-shape", "gx-shape",
                                   "amat-shape", "pts-dtype", "flow-shape",
-                                  "device", "win-too-large",
-                                  "image-too-small"])
+                                  "device", "gx-not-contiguous",
+                                  "win-too-large", "image-too-small"])
 def test_lk_refine_rejects_bad_input(name):
     args, win = _bad_refine_args()[name]
     with pytest.raises(ValueError):
@@ -274,14 +276,14 @@ def test_lk_refine_rejects_bad_input(name):
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     """The CUDA kernel against the plain version on the card, with clamped
-    windows, a degenerate corner, a strided img1 and win = 15 and 21 (more
-    than one element per thread). Gate 1e-2 px: the block's tree reduction
-    and the plain version's sum add 225 (441) products in another order,
-    and ten steps feed that difference back through the solve. Counts one
-    launch per call for all pairs."""
+    windows, a degenerate corner, a strided img1, win = 7, 15 and 21 (up to
+    8 elements a lane) and 31 (up to 32), and one pair alone. Gate 1e-2 px:
+    the warp's butterfly and the plain version's sum add the window's
+    products in another order, and ten steps feed that difference back
+    through the solve. Counts one launch per call for all pairs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc; the kernel has no CPU mode")
-    for win in (15, 21):
+    for win in (7, 15, 21, 31):
         args = [a.cuda() for a in _refine_inputs(win=win)]
         before = lk_refine.launches
         got = lk_refine(*args, win=win, iters=10)
@@ -289,11 +291,14 @@ def test_kernel_matches_plain_on_card():
         assert lk_refine.launches == before + 1
         want = lk_refine_plain(*args, win, 10)
         assert got.shape == want.shape and got.dtype == torch.float32
-        assert float((got - want).abs().max()) <= 1e-2
+        assert float((got - want).abs().max()) <= 1e-2, win
         wide = torch.zeros((2, 96, 192), device="cuda")
         wide[:, :, ::2] = args[0]
         strided = lk_refine(wide[:, :, ::2], *args[1:], win=win, iters=10)
         assert torch.equal(strided, got)
+        one = lk_refine(*(a[1:].contiguous() for a in args), win=win,
+                        iters=10)
+        assert torch.equal(one, got[1:])
     with pytest.raises(ValueError):
-        lk_refine(args[0], args[1].transpose(2, 3), *args[2:], win=21,
+        lk_refine(args[0], args[1].transpose(2, 3), *args[2:], win=31,
                   iters=1)

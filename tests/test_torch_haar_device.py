@@ -140,7 +140,7 @@ def test_grid_meta_equals_jax(xml, h, w, stride):
     plan = td._plan(h, w)
     assert (plan.canvas_h, plan.canvas_w, plan.ny, plan.nx) == (
         canvas_h, canvas_w) + want[:2]
-    assert np.array_equal(plan.valid.numpy() != 0, want[2])
+    assert np.array_equal(plan.grid.valid.numpy() != 0, want[2])
     assert plan.dtype == torch.float32
 
 
@@ -159,11 +159,13 @@ def test_stage_tables_equal_jax(xml, n_early):
     rects0 = _scaled_rects(cas, 1.0)
     tables = K.stage_tables(cas, rects0, torch.float32, "cpu")
     assert tables.stage_end[n_early - 1] == want[0]
-    for a, b, c in zip(tables.host, tables.dev, want[1:]):
+    assert tables.ends.tolist() == list(tables.stage_end)
+    on_device = unpack_records(tables.records.numpy(), np.float32)
+    for a, b, c in zip(tables.host, on_device, want[1:]):
         assert np.array_equal(a[:want[0]], c)
-        assert np.array_equal(b.numpy(), a)
+        assert b.dtype == a.dtype and np.array_equal(b, a)
     wide = K.stage_tables(cas, rects0, torch.float64, "cpu")
-    assert wide.host[2].dtype == np.float64
+    assert wide.host[2].dtype == np.float64 and wide.dtype == torch.float64
     assert np.array_equal(wide.host[2], cas.node_thr)
     # one figure for the furthest corner: the detector's grid takes the
     # tables' own, which the launch check reads too
@@ -298,7 +300,8 @@ def test_float64_canvases_above_the_float32_bound(xml):
                                device="cpu")
     plan = td._plan(360, 480)
     assert plan.dtype == torch.float64
-    assert plan.tables.dev[1].dtype == torch.float64
+    assert plan.tables.dtype == torch.float64
+    assert plan.tables.records.shape == (plan.tables.stage_end[-1], 144)
     before = td.early_mask(frames)
     assert before.dtype == torch.int8 and before.shape[1:] == (plan.ny,
                                                                plan.nx)
@@ -358,49 +361,209 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(xml):
     plan = td._plan(64, 64)
     frames, _ = _clip(11, 1, 64, 64, 30)
     ii, ii2 = td._canvases(plan, torch.from_numpy(frames))
-    ok = K.haar_stages(ii, ii2, plan.valid, plan.tables, 3)
-    assert torch.equal(ok, K.haar_stages_plain(ii, ii2, plan.valid,
+    grid = plan.grid
+    ok = K.haar_stages(ii, ii2, grid, plan.tables, 3)
+    assert torch.equal(ok, K.haar_stages_plain(ii, ii2, grid.valid,
                                                plan.tables, 3))
     # no stage: every valid window is alive
-    assert torch.equal(K.haar_stages(ii, ii2, plan.valid, plan.tables, 0)[0],
-                       plan.valid)
+    assert torch.equal(K.haar_stages(ii, ii2, grid, plan.tables, 0)[0],
+                       grid.valid)
     with pytest.raises(ValueError, match="torch.Tensor"):
-        K.haar_stages(ii.numpy(), ii2, plan.valid, plan.tables, 3)
+        K.haar_stages(ii.numpy(), ii2, grid, plan.tables, 3)
     with pytest.raises(ValueError, match="float32 or float64"):
-        K.haar_stages(ii.half(), ii2.half(), plan.valid, plan.tables, 3)
+        K.haar_stages(ii.half(), ii2.half(), grid, plan.tables, 3)
     with pytest.raises(ValueError, match="tables are"):
-        K.haar_stages(ii.double(), ii2.double(), plan.valid, plan.tables, 3)
+        K.haar_stages(ii.double(), ii2.double(), grid, plan.tables, 3)
     with pytest.raises(ValueError, match="int8"):
-        K.haar_stages(ii, ii2, plan.valid.bool(), plan.tables, 3)
+        K.haar_stages(ii, ii2, grid._replace(valid=grid.valid.bool()),
+                      plan.tables, 3)
     with pytest.raises(ValueError, match="n_stages"):
-        K.haar_stages(ii, ii2, plan.valid, plan.tables, 99)
+        K.haar_stages(ii, ii2, grid, plan.tables, 99)
     with pytest.raises(ValueError, match="reaches past"):
-        K.haar_stages(ii[:, :-1], ii2[:, :-1], plan.valid, plan.tables, 3)
+        K.haar_stages(ii[:, :-1], ii2[:, :-1], grid, plan.tables, 3)
     with pytest.raises(ValueError, match="reaches past"):
-        K.haar_stages(ii, ii2, plan.valid, plan.tables, 3, stride=2)
+        K.haar_stages(ii, ii2, grid, plan.tables, 3, stride=2)
+
+
+def unpack_records(packed: np.ndarray, dtype) -> tuple:
+    """The inverse of K.pack_records: (N, record size) uint8 -> geo, wts,
+    thr, leaf, flg, is_last, sthr as cascade_tables_rolled gives them."""
+    rec = np.ascontiguousarray(packed).view(K.record_dtype(dtype))[:, 0]
+    t = np.dtype(dtype)
+    flags = rec["flags"]
+    flg = np.stack([(flags & K.LEFT_LEAF) != 0, (flags & K.RIGHT_LEAF) != 0],
+                   axis=1).astype(t)
+    return (rec["geo"].reshape(-1, 2, 3).copy(),
+            rec["wts"].reshape(-1, 2, 3).copy(), rec["thr"].copy(),
+            rec["leaf"].copy(), flg, ((flags & K.ENDS_STAGE) != 0).astype(t),
+            rec["sthr"].copy())
+
+
+@pytest.mark.parametrize("n_stages", [1, 3, 10])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_records_unpack_to_the_rolled_tables(full_xml, dtype, n_stages):
+    """The kernel's packed per-tree records hold exactly the plain
+    version's arrays (cascade_tables_rolled), bit for bit."""
+    cas = parse_cascade(full_xml)
+    rolled = K.cascade_tables_rolled(cas, _scaled_rects(cas, 1.0), n_stages,
+                                     dtype)
+    packed = K.pack_records(rolled[1:], dtype)
+    assert packed.dtype == np.uint8 and packed.shape == (
+        rolled[0], 96 if dtype == np.float32 else 144)
+    got = unpack_records(packed, dtype)
+    for a, b in zip(got, rolled[1:]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a.view(np.uint8), np.ascontiguousarray(
+            b).view(np.uint8))
+
+
+@pytest.mark.parametrize("h,w,stride", [(64, 64, 1), (96, 112, 1),
+                                        (96, 112, 2)])
+def test_valid_cell_list_equals_nonzero(xml, h, w, stride):
+    """The plan's list of valid windows, which the kernel walks, holds the
+    cells of torch.nonzero(valid), each once, in TILE x TILE tile order:
+    tiles row-major, and inside a tile the order of torch.nonzero."""
+    td = TD.DeviceHaarDetector(xml, stride=stride, device="cpu")
+    plan = td._plan(h, w)
+    valid, cells = plan.grid
+    want = torch.nonzero(valid)
+    got = cells.long()
+    assert cells.dtype == torch.int32 and cells.is_contiguous()
+    assert len(got) == len(want) == int(valid.sum()) > 0
+    tile_of = lambda c: (int(c[0]) // K.TILE, int(c[1]) // K.TILE)
+    by_tile = sorted(range(len(want)), key=lambda i: tile_of(want[i]))
+    assert torch.equal(got, want[by_tile])
+    assert sorted(map(tuple, got.tolist())) == list(map(tuple, want.tolist()))
+    if h == 96 and stride == 1:
+        assert plan.ny > K.TILE and plan.nx > K.TILE    # several tiles
+
+
+def _bad_k3_args(td, plan, frames):
+    ii, ii2 = td._canvases(plan, torch.from_numpy(frames))
+    wide = K.stage_tables(td.cas, td.rects0, torch.float64, "cpu")
+    grid = plan.grid
+    base = [ii, ii2, grid, plan.tables, 3]
+    cells = lambda c: (2, grid._replace(cells=c))
+    cases = {
+        "float64-tables": (3, wide),
+        "records-not-uint8": (3, plan.tables._replace(
+            records=plan.tables.records.view(torch.int32))),
+        "canvas-not-contiguous": (0, ii.transpose(1, 2).contiguous(
+            ).transpose(1, 2)),
+        "grid-not-from-window-grid": (2, tuple(grid)),
+        "cells-int64": cells(grid.cells.long()),
+        "cells-shape": cells(grid.cells[:, :1]),
+        "cells-too-many": cells(torch.zeros((grid.valid.numel() + 1, 2),
+                                            dtype=torch.int32)),
+        "cells-not-contiguous": cells(grid.cells.t().contiguous().t()),
+        "cells-device": cells(grid.cells.to("meta")),
+    }
+    out = {}
+    for name, (pos, bad) in cases.items():
+        args = list(base)
+        args[pos] = bad
+        if name == "canvas-not-contiguous":
+            args[1] = bad.clone()
+        out[name] = args
+    return out
+
+
+@pytest.mark.parametrize("name", [
+    "float64-tables", "records-not-uint8", "canvas-not-contiguous",
+    "grid-not-from-window-grid", "cells-int64", "cells-shape", "cells-too-many", "cells-not-contiguous",
+    "cells-device"])
+def test_haar_stages_rejects_what_the_kernel_does_not_take(xml, name):
+    """Refused on every device, before any kernel or plain version runs:
+    tables of another type, canvases or cells the kernel cannot walk, a
+    validity grid and cell list not made together by window_grid."""
+    td = TD.DeviceHaarDetector(xml, early_stages=3, device="cpu")
+    plan = td._plan(64, 64)
+    args = _bad_k3_args(td, plan, _clip(13, 1, 64, 64, 30)[0])[name]
+    with pytest.raises(ValueError):
+        K.haar_stages(*args)
+
+
+RUN = K.TILE ** 2   # list entries a block takes (csrc/haar_stages.cu kRun)
+
+
+def _card_masks(xml, frames, stages, stride=1):
+    """The kernel's and the plain version's masks on the card for each
+    n_stages in `stages`, one launch per call; the list's length too."""
+    td = TD.DeviceHaarDetector(xml, early_stages=3, stride=stride,
+                               device="cuda")
+    plan = td._plan(*frames.shape[1:])
+    ii, ii2 = td._canvases(plan, torch.from_numpy(frames).cuda())
+    out = []
+    for n_stages in stages:
+        before = K.haar_stages.launches
+        got = K.haar_stages(ii, ii2, plan.grid, plan.tables, n_stages,
+                            stride)
+        torch.cuda.synchronize()
+        assert K.haar_stages.launches == before + 1
+        want = K.haar_stages_plain(ii, ii2, plan.grid.valid, plan.tables,
+                                   n_stages, stride)
+        assert got.dtype == torch.int8 and got.shape == want.shape
+        out.append((n_stages, int((got != want).sum()), int(got.sum())))
+    return out, len(plan.grid.cells)
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(xml):
+def test_kernel_matches_plain_on_card(xml, full_xml):
     """The CUDA kernel against the plain version on the card, every byte of
-    the mask, at float32 and float64, stride 1 and 2, for 1, 3 and all
-    stages; one launch per call."""
+    the mask (0 differing windows), at float32 and float64, stride 1 and 2,
+    and at the edges that compacting survivors creates: no stage (mask =
+    valid), all 20 stages of the full cascade, flat frames whose windows
+    all die early, one frame, a grid smaller than one block's run of
+    windows, and valid-window counts that are not a multiple of a run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc; the kernel has no CPU mode")
+    n_small = len(SC.SMALL_STAGES)
     for (h, w, side), stride in (((96, 112, 40), 1), ((96, 112, 40), 2),
                                  ((360, 480, 170), 1)):
         frames, _ = _clip(12, 3, h, w, side)
-        td = TD.DeviceHaarDetector(xml, early_stages=3, stride=stride,
-                                   device="cuda")
-        plan = td._plan(h, w)
-        ii, ii2 = td._canvases(plan, torch.from_numpy(frames).cuda())
-        for n_stages in (1, 3, len(SC.SMALL_STAGES)):
-            before = K.haar_stages.launches
-            got = K.haar_stages(ii, ii2, plan.valid, plan.tables, n_stages,
-                                stride)
-            torch.cuda.synchronize()
-            assert K.haar_stages.launches == before + 1
-            want = K.haar_stages_plain(ii, ii2, plan.valid, plan.tables,
-                                       n_stages, stride)
-            assert got.dtype == torch.int8 and torch.equal(got, want)
-            assert 0 < int(got.sum()) < got.numel()
+        res, n_cells = _card_masks(xml, frames, (0, 1, 3, n_small), stride)
+        assert all(d == 0 for _, d, _ in res), res
+        assert res[0][2] == 3 * n_cells and 0 < res[-1][2] < 3 * n_cells
+        assert n_cells % RUN != 0 or stride == 2
+    # the full cascade: 10 and all 20 stages, 2 frames and one
+    for t in (2, 1):
+        frames, _ = _clip(14, t, 128, 128, 60)
+        res, _ = _card_masks(full_xml, frames, (1, 10, 20))
+        assert all(d == 0 for _, d, _ in res), res
+        assert res[1][2] > 0
+    # flat frames: every window has zero variance and the same features
+    flat = np.stack([np.zeros((96, 112), np.uint8),
+                     np.full((96, 112), 128, np.uint8)])
+    res, _ = _card_masks(full_xml, flat, (0, 1, 2, 10, 20))
+    assert all(d == 0 for _, d, _ in res), res
+    assert res[3][2] == res[4][2] == 0
+    # a grid of fewer windows than one run
+    frames, _ = _clip(15, 2, 24, 30, 20)
+    res, n_cells = _card_masks(xml, frames, (0, 1, n_small))
+    assert n_cells < RUN and all(d == 0 for _, d, _ in res), res
+
+
+@pytest.mark.cuda
+def test_kernel_skips_cells_outside_the_grid(xml):
+    """A cell list that reaches outside its grid (one not from window_grid)
+    makes the kernel neither read nor write out of bounds: it skips those
+    cells, and the mask is the one of the cells inside."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc; the kernel has no CPU mode")
+    frames, _ = _clip(16, 2, 96, 112, 40)
+    td = TD.DeviceHaarDetector(xml, early_stages=3, device="cuda")
+    plan = td._plan(96, 112)
+    ii, ii2 = td._canvases(plan, torch.from_numpy(frames).cuda())
+    grid = plan.grid
+    ny, nx = grid.valid.shape
+    outside = torch.tensor([[ny, 0], [0, nx], [-1, 3], [ny + 7, nx + 9],
+                            [2 ** 30, -2 ** 30]], dtype=torch.int32,
+                           device="cuda")
+    mixed = grid._replace(cells=torch.cat([outside, grid.cells[:-5]]))
+    want = K.haar_stages_plain(ii, ii2, grid.valid, plan.tables, 3)
+    inside = torch.zeros_like(grid.valid)
+    kept = grid.cells[:-5].long()
+    inside[kept[:, 0], kept[:, 1]] = 1
+    got = K.haar_stages(ii, ii2, mixed, plan.tables, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want & inside[None])

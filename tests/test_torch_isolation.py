@@ -110,13 +110,14 @@ def test_kernel_wrappers_take_tensors_only():
     kernel). A numpy array, which lies on no device, is refused, not run on
     the CPU."""
     from gifgan_tpu_torch.kernels.flow_refine import lk_refine
-    from gifgan_tpu_torch.kernels.haar_stages import haar_stages
+    from gifgan_tpu_torch.kernels.haar_stages import WindowGrid, haar_stages
     from gifgan_tpu_torch.kernels.resize import resize_normalize
 
     with pytest.raises(ValueError, match="torch.Tensor"):
         haar_stages(np.zeros((1, 64, 64), np.float32),
                     np.zeros((1, 64, 64), np.float32),
-                    np.ones((4, 4), np.int8), None, 1)
+                    WindowGrid(np.ones((4, 4), np.int8),
+                               np.zeros((16, 2), np.int32)), None, 1)
 
     with pytest.raises(ValueError, match="torch.Tensor"):
         resize_normalize(np.zeros((1, 8, 8, 3), np.uint8), 4, 4)
