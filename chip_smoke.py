@@ -13,9 +13,15 @@ Phases, one report line each, any failed check raising:
             version, and timed beside it and, as an aside (a copy only, no
             widen or scale), beside torch.index_select;
 5. K2       the resize + normalize kernel at the feed's shape ((1024, 256,
-            256, 3) uint8 -> 64x64, scaled) and on a float32 non-square
-            case, against its plain version; timed beside it and beside
-            F.interpolate;
+            256, 3) uint8 -> 64x64, scaled), on a float32 non-square case,
+            on unaligned rows (W*C = 363, and the feed's shape one byte
+            into its storage), on 70,000 tiny frames (past gridDim.y), on
+            11,000 frames of 256x256x3 (past 2^31 bytes) and at
+            data/video.py resize_u8's shape (48, 360, 480, 3) -> 256x256,
+            against its plain version, each case with its launch plan;
+            timed beside the plain version and F.interpolate, with the
+            one-byte offset, resize_u8's shape and a device copy of the
+            bytes K2 moves as asides;
 6. K3       the cascade stage kernel with a seeded cascade of alt2's shape
             (253 trees in its first 10 stages) on the packed pyramid
             canvases of a 16x256x256 clip with planted glyphs (float32, 10
@@ -98,7 +104,8 @@ from gifgan_tpu_torch.kernels.gather import (gather_rows_scaled,
                                              gather_rows_scaled_plain)
 from gifgan_tpu_torch.kernels.haar_stages import (haar_stages,
                                                   haar_stages_plain)
-from gifgan_tpu_torch.kernels.resize import (interp_taps, resize_normalize,
+from gifgan_tpu_torch.kernels.resize import (interp_taps, launch_plan,
+                                             resize_normalize,
                                              resize_normalize_plain)
 from gifgan_tpu_torch.serve.sampler import gif_wall, vid_sample_fn
 from gifgan_tpu_torch.track import pipeline as tpipe
@@ -318,37 +325,78 @@ def phase_k1(corpus, seed):
             "aside_index_select_u8_copy_ms": lib_ms}
 
 
+def k2_needed_bytes(n, h, w, c, oh, ow, element_size):
+    """What K2's bound counts: the source values under a tap with a
+    non-zero weight, each once, and every output float once. Also the whole
+    source rows that hold such a value (what 32-byte sectors make a kernel
+    fetch), both in bytes."""
+    rows, cols = (int(np.unique(idx[wt != 0]).size) for idx, wt in
+                  (interp_taps(h, oh), interp_taps(w, ow)))
+    out_bytes = n * oh * ow * c * 4
+    return (n * rows * cols * c * element_size + out_bytes,
+            n * rows * w * c * element_size + out_bytes)
+
+
 def phase_k2(seed):
-    """K2 at the feed's shape and on a float32 non-square case."""
+    """K2 at the feed's shape, on a float32 non-square case, on unaligned
+    rows, past gridDim.y's frames and 2^31 input bytes, and at resize_u8's
+    shape for a scraped GIF."""
     g = torch.Generator(device=DEVICE).manual_seed(seed + 5)
     n, h, w, c, oh, ow = BATCH * CLIP_LEN, 256, 256, 3, CLIP_SIZE, CLIP_SIZE
-    sets = [(torch.randint(0, 256, (n, h, w, c), device=DEVICE,
-                           dtype=torch.uint8, generator=g), oh, ow)
-            for _ in range(3)]           # 201 MB each: past the 50 MB L2
-    x = sets[0][0]
-    got = resize_normalize(x, oh, ow)
-    want = resize_normalize_plain(x, oh, ow)
-    torch.cuda.synchronize()
-    check(got.shape == (n, oh, ow, c) and got.dtype == torch.float32,
-          "K2 shape")
+
+    def frames(shape, offset=0):
+        """uint8 frames starting `offset` bytes into their storage."""
+        flat = torch.randint(0, 256, (math.prod(shape) + offset,),
+                             device=DEVICE, dtype=torch.uint8, generator=g)
+        return flat[offset:].view(shape)
+
+    def compare(case, x, oh, ow, tol, normalize=True, last=None):
+        """The kernel against the plain version (on the last `last` frames
+        only, where given), within `tol`."""
+        got = resize_normalize(x, oh, ow, normalize=normalize)
+        part = slice(-last, None) if last else slice(None)
+        want = resize_normalize_plain(x[part], oh, ow, normalize)
+        torch.cuda.synchronize()
+        check(got.shape == (x.shape[0], oh, ow, x.shape[3])
+              and got.dtype == torch.float32, f"K2 {case} shape")
+        err = float((got[part] - want).abs().max())
+        say("K2", case=case, shape=f"{tuple(x.shape)}{str(x.dtype)[6:]}->"
+            f"({oh},{ow})", offset=x.storage_offset(),
+            plan=",".join(f"{k}={v}" for k, v in
+                          launch_plan(x.shape[3], oh, ow)._asdict().items()),
+            max_abs_err=err, tolerance=tol,
+            compared_frames=want.shape[0])
+        check(err <= tol, f"K2 {case} within {tol} of the plain version: "
+                          f"{err}")
+        return got, err
+
     # Per output value: two 2-tap row sums and one 2-tap column sum of
     # float32 products, then the scale; the kernel fuses each sum into one
     # fma and the plain version's matmuls round each product. 4 ulp of the
     # largest magnitude before the final subtraction: 2^-20 for y / 127.5 in
     # [0, 2], 2^-13 for y in [0, 255].
-    tol = 2.0 ** -20
-    err = float((got - want).abs().max())
-    check(err <= tol, f"K2 within 4 ulp of the plain version: {err}")
+    tol, tol_f = 2.0 ** -20, 2.0 ** -13
+    sets = [(frames((n, h, w, c)), oh, ow)
+            for _ in range(3)]           # 201 MB each: past the 50 MB L2
+    x = sets[0][0]
+    got, err = compare("feed", x, oh, ow, tol)
     check(float(got.min()) >= -1.0 and float(got.max()) <= 1.0,
           "K2 output in [-1, 1]")
-
     xf = torch.rand((5, 90, 120, 3), device=DEVICE, generator=g) * 255
-    got_f = resize_normalize(xf, 48, 100, normalize=False)
-    want_f = resize_normalize_plain(xf, 48, 100, normalize=False)
-    tol_f = 2.0 ** -13
-    err_f = float((got_f - want_f).abs().max())
-    check(got_f.shape == (5, 48, 100, 3) and err_f <= tol_f,
-          f"K2 float32 non-square case within 4 ulp of 255: {err_f}")
+    _, err_f = compare("f32", xf, 48, 100, tol_f, normalize=False)
+    compare("wc-363", frames((64, 93, 121, 3)), 64, 64, tol)
+    offset_sets = [(frames((n, h, w, c), offset=1), oh, ow)
+                   for _ in range(3)]
+    compare("feed-offset-1", offset_sets[0][0], oh, ow, tol)
+    compare("frames-70000", frames((70_000, 4, 4, 3)), 2, 2, tol)
+    big = frames((11_000, h, w, c))                # 2.16 GB: past 2^31
+    check(big.numel() > 2 ** 31, "K2 input past 2^31 bytes")
+    compare("bytes-over-2^31", big, oh, ow, tol, last=8)
+    del big
+    gif_sets = [(frames((48, 360, 480, 3)), 256, 256, False)
+                for _ in range(3)]             # data/video.py resize_u8
+    compare("resize_u8-360x480", gif_sets[0][0], 256, 256, tol_f,
+            normalize=False)
 
     def library(frames_nchw):
         return F.interpolate(frames_nchw, size=(oh, ow), mode="bilinear",
@@ -361,26 +409,34 @@ def phase_k2(seed):
     lib_diff = float((lib - got).abs().max())
     check(lib_diff <= 1e-5, f"F.interpolate computes the same resize: "
                             f"{lib_diff}")
-    del lib, want, want_f
+    del lib, got
     ms = graph_ms(resize_normalize, sets)
     plain_ms = graph_ms(resize_normalize_plain, sets, reps=2)
     lib_ms = graph_ms(library, [(x_nchw,)])
+    offset_ms = graph_ms(resize_normalize, offset_sets)
+    gif_ms = graph_ms(resize_normalize, gif_sets)
     ms2 = graph_ms(resize_normalize, sets)
-    # The bound counts the bytes the function needs: the source values that
-    # a tap with a non-zero weight reads (at 256 -> 64 rows and columns 4i+1
-    # and 4i+2 only, a quarter of the input), each once, and every output
-    # float once. Two asides, not the bound: whole source rows that hold a
-    # needed value (what 32-byte sectors make a kernel fetch), and every
+    # an aside: a device copy moving as many bytes as K2 moves at the feed
+    # shape (whole needed rows in, every float out), the rate a plain stream
+    # reaches on this card; as many sets and reps as K2's time, twice
+    nbytes, row_bytes = k2_needed_bytes(n, h, w, c, oh, ow, 1)
+    del sets, offset_sets
+    copy_sets = [tuple(torch.empty(row_bytes // 2, dtype=torch.uint8,
+                                   device=DEVICE) for _ in range(2))
+                 for _ in range(3)]
+    copy_ms = [graph_ms(lambda a, b: b.copy_(a), copy_sets)
+               for _ in range(2)]
+    del copy_sets
+    # The bound counts the bytes the function needs (at 256 -> 64 rows and
+    # columns 4i+1 and 4i+2 only, a quarter of the input). Two asides, not
+    # the bound: whole source rows that hold a needed value, and every
     # input byte.
-    out_bytes = n * oh * ow * c * 4
-    rows, cols = (int(np.unique(idx[wt != 0]).size) for idx, wt in
-                  (interp_taps(h, oh), interp_taps(w, ow)))
-    nbytes = n * rows * cols * c * x.element_size() + out_bytes
-    row_bytes = n * rows * w * c * x.element_size() + out_bytes
-    all_bytes = x.numel() * x.element_size() + out_bytes
+    all_bytes = x.numel() + n * oh * ow * c * 4
     bound_ms = max(nbytes / HBM_BYTES_PER_S,
                    6 * n * oh * ow * c / F32_FLOPS) * 1e3
     kernel_ms = min(ms, ms2)
+    gif_bytes, _ = k2_needed_bytes(48, 360, 480, 3, 256, 256, 1)
+    gif_bound_ms = gif_bytes / HBM_BYTES_PER_S * 1e3
     say("K2", shape=f"({n},{h},{w},{c})u8->({oh},{ow})", max_abs_err=err,
         tolerance=tol, f32_case_err=err_f, f32_case_tolerance=tol_f,
         kernel_ms=f"{ms:.5f},{ms2:.5f}", plain_ms=f"{plain_ms:.5f}",
@@ -390,7 +446,17 @@ def phase_k2(seed):
         aside_whole_rows_bytes=row_bytes,
         aside_whole_rows_ms=f"{row_bytes / HBM_BYTES_PER_S * 1e3:.5f}",
         aside_all_input_bytes=all_bytes,
-        aside_all_input_ms=f"{all_bytes / HBM_BYTES_PER_S * 1e3:.5f}")
+        aside_all_input_ms=f"{all_bytes / HBM_BYTES_PER_S * 1e3:.5f}",
+        aside_offset_1_ms=f"{offset_ms:.5f}",
+        aside_whole_rows_tb_per_s=f"{row_bytes / kernel_ms / 1e9:.3f}",
+        aside_copy_of_whole_rows_bytes_ms=",".join(
+            f"{t:.5f}" for t in copy_ms),
+        aside_copy_tb_per_s=",".join(
+            f"{row_bytes / t / 1e9:.3f}" for t in copy_ms))
+    say("K2", aside="resize_u8", shape="(48,360,480,3)u8->(256,256) raw",
+        kernel_ms=f"{gif_ms:.5f}", bound_bytes=gif_bytes,
+        bound_ms=f"{gif_bound_ms:.5f}",
+        bound_share=f"{gif_bound_ms / gif_ms:.3f}")
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
             "library_call": "F.interpolate(bilinear, align_corners=False, "

@@ -15,100 +15,153 @@
 // (1024, 256, 256, 3) uint8 -> 64x64 the taps fall on rows and columns 4i+1
 // and 4i+2 only, a quarter of the input: 50.3 MB + 50.3 MB, 30.0 us at
 // 3.35 TB/s. A kernel fetches 32-byte sectors, so it cannot skip within a
-// row: whole needed rows are 100.7 MB + 50.3 MB, 45.1 us. (All 201.3 MB of
-// input would be 75.1 us; no kernel needs them.) The arithmetic, six
-// multiply-adds per output value, is far below the card's rate.
+// row: whole needed rows are 100.7 MB + 50.3 MB, 45.1 us. The arithmetic,
+// six multiply-adds per output value, is far below the card's rate.
 //
-// Design: the TPU kernel wrote the resize as two dense matmuls per channel
-// plane to reach its matrix unit, and transposed NHWC to planes and back
-// for it. Here each output value is a 4-tap gather. The two non-zero
-// weights of every row of A and of B arrive as small tables (two source
-// indices and two float32 weights per output row or column, built on the
-// host in float64 and stored as float32 exactly as interp_matrix stores
-// them, so no coordinate is recomputed in float32 here). One thread
-// computes one output value; threads run along the contiguous (j, c) axis
-// of an output row, so a warp's store covers 128 contiguous bytes and its
-// loads walk the two source rows in order. The row taps are applied first
-// and the column taps second, as A.X then .B^T; the scale is a separately
-// rounded multiply and subtract, as the plain version's. Offsets are
-// 64-bit: N*H*W*C passes 2^31 above ~10.9k frames of 256x256x3.
+// Design. The TPU kernel wrote the resize as two dense matmuls per channel
+// plane to reach its matrix unit; here each output value is a 4-tap gather.
+// A first design ran one thread per output value and recomputed, for every
+// value, its frame, row and column with 64-bit divisions and loaded its taps
+// from tables: issue-bound on index arithmetic, not on memory. Now all of
+// that is done once per block or once per thread:
+//
+// - One block computes a tile of `rows_per_tile` output rows of one frame
+//   (grid x: tiles, grid y: frames, looping where N passes gridDim.y's
+//   65,535). A row's two source rows and weights are uniform loads.
+// - Each thread owns a fixed unit of an output row: `vec` = 4 consecutive
+//   floats (one float4 store) where ow*C is a multiple of 4, else 1. It
+//   turns that unit's column taps into element offsets in a source row once
+//   and keeps them in registers for all the rows it computes. `groups`
+//   rows of a tile run side by side when a row has fewer units than the
+//   block has threads (kernels/resize.py launch_plan).
+// - The taps are read from global memory through L1, at any alignment and
+//   any row width. (Staging the source rows in shared memory with bulk
+//   copies was no faster at the feed shape on an H100 SXM at 700 W;
+//   PERF.md.)
+// - uint8 widens exactly as 2^23 + v read as a float, minus 2^23: two
+//   full-rate operations in place of a quarter-rate conversion.
+//
+// What is left is device memory: at the feed shape K2 takes about 0.056 ms
+// on an H100 SXM at 700 W, moving the whole needed rows and the output at
+// about 2.7 TB/s, close to a device copy of the same bytes (PERF.md).
+//
+// Arithmetic order, as the plain version is held to: the row taps first,
+// left = fmaf(wy1, r1, wy0 * r0), then the columns, fmaf(wx1, right,
+// wx0 * left), then the scale as a separately rounded multiply and subtract.
+// Offsets into the source and the output are 64-bit: N*H*W*C passes 2^31
+// above ~10.9k frames of 256x256x3.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxFramesY = 65535;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-resize_normalize_nhwc(const T* __restrict__ src, float* __restrict__ out,
-                      const int* __restrict__ yidx,
-                      const float* __restrict__ ywt,
-                      const int* __restrict__ xidx,
-                      const float* __restrict__ xwt, int64_t total, int h,
-                      int w, int c, int oh, int ow, int normalize) {
-  const int64_t row_len = static_cast<int64_t>(ow) * c;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       e < total; e += stride) {
-    const int64_t row = e / row_len;             // n * oh + i
-    const int jc = static_cast<int>(e - row * row_len);
-    const int j = jc / c;
-    const int ch = jc - j * c;
-    const int i = static_cast<int>(row % oh);
-    const int64_t n = row / oh;
+__device__ __forceinline__ float widen(uint8_t v) {
+  return __uint_as_float(0x4B000000u | v) - 8388608.0f;
+}
+__device__ __forceinline__ float widen(float v) { return v; }
 
-    const int y0 = __ldg(yidx + 2 * i), y1 = __ldg(yidx + 2 * i + 1);
-    const float wy0 = __ldg(ywt + 2 * i), wy1 = __ldg(ywt + 2 * i + 1);
-    const int x0 = __ldg(xidx + 2 * j), x1 = __ldg(xidx + 2 * j + 1);
-    const float wx0 = __ldg(xwt + 2 * j), wx1 = __ldg(xwt + 2 * j + 1);
-
-    const T* img = src + n * h * static_cast<int64_t>(w) * c + ch;
-    const T* r0 = img + static_cast<int64_t>(y0) * w * c;
-    const T* r1 = img + static_cast<int64_t>(y1) * w * c;
-    const int64_t o0 = static_cast<int64_t>(x0) * c;
-    const int64_t o1 = static_cast<int64_t>(x1) * c;
-    // rows = A . X at the two source columns, then y = rows . B^T
-    const float left = fmaf(wy1, static_cast<float>(__ldg(r1 + o0)),
-                            wy0 * static_cast<float>(__ldg(r0 + o0)));
-    const float right = fmaf(wy1, static_cast<float>(__ldg(r1 + o1)),
-                             wy0 * static_cast<float>(__ldg(r0 + o1)));
-    float y = fmaf(wx1, right, wx0 * left);
-    if (normalize) y = __fsub_rn(__fmul_rn(y, 1.0f / 127.5f), 1.0f);
-    out[e] = y;
+template <typename T, int kVec>
+__global__ void resize_rows(const T* __restrict__ src, float* __restrict__ out,
+                            const int2* __restrict__ yidx,
+                            const float2* __restrict__ ywt,
+                            const int2* __restrict__ xidx,
+                            const float2* __restrict__ xwt, long long n_frames,
+                            int h, int w, int c, int oh, int ow,
+                            int rows_per_tile, int groups, int normalize) {
+  const int row_len = w * c;                   // source elements a row
+  const int out_len = ow * c;                  // output floats a row
+  const int units = out_len / kVec;
+  const int u0 = threadIdx.x % units;
+  const int g = threadIdx.x / units;           // row group; idle if >= groups
+  if (g >= groups) return;
+  const int i0 = blockIdx.x * rows_per_tile;
+  const int rows = min(rows_per_tile, oh - i0);
+  for (int u = u0; u < units; u += blockDim.x) {
+    int o0[kVec], o1[kVec];
+    float wx0[kVec], wx1[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const int e = u * kVec + k;
+      const int j = e / c;
+      const int ch = e - j * c;
+      const int2 x = __ldg(xidx + j);
+      const float2 wt = __ldg(xwt + j);
+      o0[k] = x.x * c + ch;
+      o1[k] = x.y * c + ch;
+      wx0[k] = wt.x;
+      wx1[k] = wt.y;
+    }
+    for (long long n = blockIdx.y; n < n_frames; n += gridDim.y) {
+      const T* const frame = src + n * h * static_cast<long long>(row_len);
+      float* const tile_out = out + (n * oh + i0) * out_len;
+      for (int r = g; r < rows; r += groups) {
+        const int2 a = __ldg(yidx + i0 + r);
+        const float2 wy = __ldg(ywt + i0 + r);
+        const T* const r0 = frame + static_cast<long long>(a.x) * row_len;
+        const T* const r1 = frame + static_cast<long long>(a.y) * row_len;
+        float v[kVec];
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          // rows = A . X at the two source columns, then y = rows . B^T
+          const float left = fmaf(wy.y, widen(r1[o0[k]]),
+                                  wy.x * widen(r0[o0[k]]));
+          const float right = fmaf(wy.y, widen(r1[o1[k]]),
+                                   wy.x * widen(r0[o1[k]]));
+          float y = fmaf(wx1[k], right, wx0[k] * left);
+          if (normalize) y = __fsub_rn(__fmul_rn(y, 1.0f / 127.5f), 1.0f);
+          v[k] = y;
+        }
+        float* const dst = tile_out + static_cast<long long>(r) * out_len;
+        if constexpr (kVec == 4) {
+          reinterpret_cast<float4*>(dst)[u] = make_float4(v[0], v[1], v[2],
+                                                          v[3]);
+        } else {
+          dst[u] = v[0];
+        }
+      }
+    }
   }
+}
+
+template <typename T, int kVec>
+void launch(dim3 grid, int threads, cudaStream_t s, const void* src, void* out,
+            const void* yidx, const void* ywt, const void* xidx,
+            const void* xwt, long long n, int h, int w, int c, int oh, int ow,
+            int rows_per_tile, int groups, int normalize) {
+  resize_rows<T, kVec><<<grid, threads, 0, s>>>(
+      static_cast<const T*>(src), static_cast<float*>(out),
+      static_cast<const int2*>(yidx), static_cast<const float2*>(ywt),
+      static_cast<const int2*>(xidx), static_cast<const float2*>(xwt), n, h, w,
+      c, oh, ow, rows_per_tile, groups, normalize);
 }
 
 }  // namespace
 
-// src_is_u8: 1 = uint8 source, 0 = float32. yidx/xidx: (oh, 2)/(ow, 2) int32
-// source rows/columns; ywt/xwt: their float32 weights. Launches on `stream`;
-// returns cudaGetLastError() (0 = launched).
-extern "C" int resize_normalize_launch(const void* src, int src_is_u8,
-                                       void* out, const void* yidx,
-                                       const void* ywt, const void* xidx,
-                                       const void* xwt, long long n, int h,
-                                       int w, int c, int oh, int ow,
-                                       int normalize, void* stream) {
-  const long long total = n * oh * static_cast<long long>(ow) * c;
-  if (total <= 0) return static_cast<int>(cudaSuccess);
-  const long long want = (total + kThreads - 1) / kThreads;
-  const unsigned blocks =
-      static_cast<unsigned>(want < (1LL << 30) ? want : (1LL << 30));
+// src_is_u8: 1 = uint8 source, 0 = float32. yidx/ywt: (oh, 2) int32 source
+// rows and float32 weights of each output row; xidx/xwt: the same for each
+// output column (kernels/resize.py interp_taps). vec, threads, groups and
+// rows_per_tile come from kernels/resize.py launch_plan. Launches on
+// `stream`; returns cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue for a plan that would leave output values unwritten.
+extern "C" int resize_normalize_launch(
+    const void* src, int src_is_u8, void* out, const void* yidx,
+    const void* ywt, const void* xidx, const void* xwt, long long n, int h,
+    int w, int c, int oh, int ow, int vec, int threads, int groups,
+    int rows_per_tile, int normalize, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  if ((vec != 1 && vec != 4) || (ow * c) % vec || threads < 1 ||
+      groups < 1 || (groups > 1 && groups * (ow * c / vec) > threads) ||
+      rows_per_tile < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((oh + rows_per_tile - 1) / rows_per_tile,
+                  static_cast<unsigned>(n < kMaxFramesY ? n : kMaxFramesY));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (src_is_u8) {
-    resize_normalize_nhwc<uint8_t><<<blocks, kThreads, 0, s>>>(
-        static_cast<const uint8_t*>(src), static_cast<float*>(out),
-        static_cast<const int*>(yidx), static_cast<const float*>(ywt),
-        static_cast<const int*>(xidx), static_cast<const float*>(xwt), total,
-        h, w, c, oh, ow, normalize);
-  } else {
-    resize_normalize_nhwc<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(src), static_cast<float*>(out),
-        static_cast<const int*>(yidx), static_cast<const float*>(ywt),
-        static_cast<const int*>(xidx), static_cast<const float*>(xwt), total,
-        h, w, c, oh, ow, normalize);
-  }
+  auto fn = src_is_u8 ? (vec == 4 ? launch<uint8_t, 4> : launch<uint8_t, 1>)
+                      : (vec == 4 ? launch<float, 4> : launch<float, 1>);
+  fn(grid, threads, s, src, out, yidx, ywt, xidx, xwt, n, h, w, c, oh, ow,
+     rows_per_tile, groups, normalize);
   return static_cast<int>(cudaGetLastError());
 }

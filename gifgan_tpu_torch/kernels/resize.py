@@ -10,17 +10,18 @@ INTER_LINEAR half-pixel centres, edge-clamped, no antialiasing), then
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 csrc/resize_normalize.cu (bound and design are noted there: bytes-bound,
-a 4-tap gather per output value from tap tables built here). On a CPU
-tensor it takes the plain PyTorch version below, which the CPU tests hold
-against the JAX package and the card run holds the kernel against. There
-is no fallback from one to the other.
+a 4-tap gather per output value), with the block shape of `launch_plan`
+and the tap tables of `interp_taps` built here. On a CPU tensor it takes the plain PyTorch
+version below, which the CPU tests hold against the JAX package and the
+card run holds the kernel against. There is no fallback from one to the
+other.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +100,37 @@ def _check(frames: torch.Tensor, out_h: int, out_w: int) -> None:
                          f"({out_h}, {out_w})")
 
 
+# The launch plan's limits: threads a block, and output rows a thread
+# computes per tile (it keeps its column taps in registers across them).
+MAX_THREADS = 256
+ROWS_PER_THREAD = 4
+
+
+class LaunchPlan(NamedTuple):
+    """How csrc/resize_normalize.cu cuts one call into blocks."""
+    vec: int            # output floats a thread stores at once: 4 or 1
+    units: int          # such units in an output row (ow * C / vec)
+    groups: int         # output rows of a tile computed side by side
+    threads: int        # threads a block (whole warps)
+    rows_per_tile: int  # output rows a block computes per frame
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(c: int, out_h: int, out_w: int) -> LaunchPlan:
+    """The block shape of one call: each thread owns one unit (vec floats)
+    of an output row, `groups` rows (a power of two, so that tiles divide
+    a power-of-two height) run side by side where a row has fewer units
+    than MAX_THREADS, and each thread computes up to ROWS_PER_THREAD rows
+    of a tile."""
+    vec = 4 if out_w * c % 4 == 0 else 1
+    units = out_w * c // vec
+    side = min(max(1, MAX_THREADS // units), -(-out_h // ROWS_PER_THREAD))
+    groups = 1 << (side.bit_length() - 1)
+    threads = groups * units if groups > 1 else min(units, MAX_THREADS)
+    return LaunchPlan(vec, units, groups, -(-threads // 32) * 32,
+                      min(out_h, groups * ROWS_PER_THREAD))
+
+
 _fn = None
 
 
@@ -109,7 +141,7 @@ def _kernel():
         fn = _build.load(NAME).resize_normalize_launch
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
                        + [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -143,6 +175,7 @@ def resize_normalize(frames: torch.Tensor, out_h: int, out_w: int,
                       device=frames.device)
     if n == 0:
         return out
+    plan = launch_plan(c, out_h, out_w)
     yidx, ywt = _device_taps(h, out_h, frames.device)
     xidx, xwt = _device_taps(w, out_w, frames.device)
     with torch.cuda.device(frames.device):
@@ -150,6 +183,7 @@ def resize_normalize(frames: torch.Tensor, out_h: int, out_w: int,
         err = fn(frames.data_ptr(), int(frames.dtype == torch.uint8),
                  out.data_ptr(), yidx.data_ptr(), ywt.data_ptr(),
                  xidx.data_ptr(), xwt.data_ptr(), n, h, w, c, out_h, out_w,
+                 plan.vec, plan.threads, plan.groups, plan.rows_per_tile,
                  int(bool(normalize)), stream)
     if err != 0:
         raise RuntimeError(f"{NAME} launch failed: CUDA error {err}")

@@ -16,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from gifgan_tpu_torch.kernels.resize import (interp_matrix, interp_taps,
-                                             resize_normalize,
+from gifgan_tpu_torch.kernels import resize as kresize
+from gifgan_tpu_torch.kernels.resize import (MAX_THREADS, ROWS_PER_THREAD,
+                                             interp_matrix, interp_taps,
+                                             launch_plan, resize_normalize,
                                              resize_normalize_plain)
 
 CASES = {
@@ -36,8 +38,9 @@ def _frames(shape, dtype, seed=0):
     return rng.uniform(0, 255, shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("n_in,n_out", [(8, 4), (4, 8), (7, 3), (256, 64),
-                                        (5, 5), (1, 4)])
+@pytest.mark.parametrize("n_in,n_out", [
+    (8, 4), (4, 8), (7, 3), (256, 64), (5, 5), (1, 4), (360, 256),
+    (480, 256), (93, 64), (121, 64), (4, 2), (7, 16), (25, 7), (6016, 8)])
 def test_interp_matrix_and_taps_equal_jax(n_in, n_out):
     from gifgan_tpu.kernels.resize import interp_matrix as jinterp
 
@@ -116,26 +119,164 @@ def test_resize_rejects_bad_input(frames, oh, ow):
         resize_normalize(frames, oh, ow)
 
 
+@pytest.mark.parametrize("c,oh,ow,plan", [
+    (3, 64, 64, (4, 48, 4, 192, 16)),      # the feed
+    (3, 256, 256, (4, 192, 1, 192, 4)),    # data/video.py resize_u8
+    (3, 100, 48, (4, 36, 4, 160, 16)),     # the float32 case of chip_smoke
+    (3, 6, 5, (1, 15, 2, 32, 6)),          # ow*C = 15: one float a thread
+    (3, 12, 40, (4, 30, 2, 64, 8)),        # 8 groups fit, 3 rows of 4 needed
+    (1, 8, 24, (4, 6, 2, 32, 8)),
+    (4, 5, 7, (4, 7, 2, 32, 5)),
+    (3, 2, 2, (1, 6, 1, 32, 2)),
+    (4, 2, 2, (4, 2, 1, 32, 2)),
+    (3, 12, 150, (1, 450, 1, 256, 4)),     # a row wider than a block
+    (3, 1, 1, (1, 3, 1, 32, 1)),
+    (4, 1024, 1024, (4, 1024, 1, 256, 4)),
+])
+def test_launch_plan(c, oh, ow, plan):
+    """The block shape the wrapper gives the kernel: whole warps within
+    MAX_THREADS, a power-of-two number of row groups that all have their
+    threads, float4 units only where an output row is whole float4s, and
+    tiles of at most ROWS_PER_THREAD rows a thread."""
+    got = launch_plan(c, oh, ow)
+    assert tuple(got) == plan
+    assert got.threads % 32 == 0 and got.threads <= MAX_THREADS
+    assert got.vec * got.units == ow * c and (ow * c) % got.vec == 0
+    assert got.groups & (got.groups - 1) == 0
+    assert got.groups == 1 or got.groups * got.units <= got.threads
+    assert got.rows_per_tile <= got.groups * ROWS_PER_THREAD
+
+
+# (N, H, W, C), dtype, out_h, out_w: the feed's shape (one frame), W*C =
+# 363, ow*C not a multiple of 4, identity, a non-integer upscale, C = 1 and
+# 4, float32, tiny frames, wide rows, an output row wider than a block
+EMULATED = {
+    "feed": ((1, 256, 256, 3), np.uint8, 64, 64),
+    "wc-363": ((1, 93, 121, 3), np.uint8, 64, 64),
+    "owc-15": ((2, 9, 16, 3), np.uint8, 6, 5),
+    "identity": ((2, 16, 16, 3), np.uint8, 16, 16),
+    "upscale-7x16-16x20": ((1, 7, 16, 3), np.uint8, 16, 20),
+    "c1": ((2, 16, 16, 1), np.uint8, 8, 24),
+    "c4": ((1, 12, 16, 4), np.uint8, 5, 7),
+    "f32": ((1, 30, 40, 3), np.float32, 16, 33),
+    "tiny": ((3, 4, 4, 3), np.uint8, 2, 2),
+    "wide-rows": ((1, 4, 6016, 4), np.uint8, 2, 8),
+    "row-wider-than-block": ((2, 8, 200, 3), np.uint8, 12, 150),
+}
+
+
+def _emulate(frames, oh, ow, grid_y):
+    """csrc/resize_normalize.cu's loops in Python, with the launch plan and
+    tap tables the wrapper gives it and `grid_y` blocks along the frames
+    (the kernel loops over frames past gridDim.y). Returns the raw
+    (unscaled) output and how often each output value was written."""
+    n, h, w, c = frames.shape
+    plan = launch_plan(c, oh, ow)
+    yidx, ywt = interp_taps(h, oh)
+    xidx, xwt = interp_taps(w, ow)
+    rows_per_tile, vec, units = plan.rows_per_tile, plan.vec, plan.units
+    row_len, out_len = w * c, ow * c
+    src = frames.reshape(n, h, row_len).astype(np.float64)
+    out = np.zeros((n, oh, out_len), np.float64)
+    writes = np.zeros(out.shape, np.int64)
+    for by in range(min(n, grid_y)):
+        for tile in range(-(-oh // rows_per_tile)):
+            i0 = tile * rows_per_tile
+            rows = min(rows_per_tile, oh - i0)
+            for t in range(plan.threads):
+                u0, g = t % units, t // units
+                if g >= plan.groups:
+                    continue
+                for u in range(u0, units, plan.threads):
+                    e = u * vec + np.arange(vec)
+                    j, ch = e // c, e % c
+                    o0, o1 = xidx[j, 0] * c + ch, xidx[j, 1] * c + ch
+                    for f in range(by, n, grid_y):
+                        for r in range(g, rows, plan.groups):
+                            a, wy = yidx[i0 + r], ywt[i0 + r]
+                            left = (wy[1] * src[f, a[1], o0]
+                                    + wy[0] * src[f, a[0], o0])
+                            right = (wy[1] * src[f, a[1], o1]
+                                     + wy[0] * src[f, a[0], o1])
+                            cols = slice(u * vec, (u + 1) * vec)
+                            out[f, i0 + r, cols] = (xwt[j, 1] * right
+                                                    + xwt[j, 0] * left)
+                            writes[f, i0 + r, cols] += 1
+    return out.reshape(n, oh, ow, c), writes
+
+
+@pytest.mark.parametrize("grid_y", [65_535, 2], ids=["frames-in-grid",
+                                                    "frames-looped"])
+@pytest.mark.parametrize("case", sorted(EMULATED))
+def test_kernel_loops_cover_every_output_once(case, grid_y):
+    """The kernel's indexing, emulated on the CPU: every output value is
+    written exactly once, from the right taps (against the plain version,
+    at tests/test_kernels.py's [0, 255] tolerance), also where the frames
+    outnumber the grid's blocks along them."""
+    shape, dtype, oh, ow = EMULATED[case]
+    frames = _frames(shape, dtype, 4)
+    got, writes = _emulate(frames, oh, ow, grid_y)
+    assert (writes == 1).all()
+    want = resize_normalize_plain(torch.from_numpy(frames), oh, ow,
+                                  normalize=False).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _offset_frames(shape, seed):
+    """uint8 frames that start one byte into their storage: contiguous,
+    not 16-byte aligned."""
+    flat = torch.from_numpy(_frames((int(np.prod(shape)) + 1,), np.uint8,
+                                    seed)).cuda()
+    return flat[1:].view(shape)
+
+
+# the card test's cases beyond CASES: (N, H, W, C), dtype, out_h, out_w
+CARD_CASES = {
+    "storage-offset": ((3, 32, 32, 3), "offset", 16, 16),
+    "wc-not-16-bytes": ((4, 93, 121, 3), np.uint8, 64, 64),
+    "owc-not-4": ((2, 9, 16, 3), np.uint8, 6, 5),
+    "identity": ((2, 64, 64, 3), np.uint8, 64, 64),
+    "upscale-non-integer": ((2, 7, 16, 3), np.uint8, 16, 20),
+    "c1": ((2, 16, 16, 1), np.uint8, 8, 24),
+    "c4": ((2, 12, 16, 4), np.uint8, 5, 7),
+    "wide-rows": ((2, 4, 6016, 4), np.uint8, 2, 8),
+    "row-wider-than-block": ((2, 8, 200, 3), np.uint8, 12, 150),
+    "frames-over-65535": ((70_000, 4, 4, 3), np.uint8, 2, 2),
+    "frames-over-65535-c4": ((70_000, 4, 4, 4), np.uint8, 2, 2),
+}
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(CARD_CASES))
+def test_kernel_matches_plain_on_card(case, monkeypatch):
     """The CUDA kernel against the plain version on the card: uint8 and
-    float32, down- and upscale, non-square, C = 1 and 3, with and without
-    the scale. Gate: 4 ulp of the largest value (two roundings per tap pair,
-    two tap pairs), i.e. 5e-7 on [-1, 1] and 1.3e-4 on [0, 255]. Counts one
-    launch per call; a non-contiguous input raises."""
+    float32, down- and upscale, non-square, identity, C = 1, 3 and 4, rows
+    that are not 16-byte sized, output rows that are not whole float4s or
+    wider than a block, a storage offset and more frames than gridDim.y
+    holds, with and without the scale. Gate: 4 ulp of the largest value
+    (two roundings per tap pair, two tap pairs), i.e. 5e-7 on [-1, 1] and
+    1.3e-4 on [0, 255]. Counts one launch per call; the plain version is
+    never called on a CUDA tensor; a non-contiguous input raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc; the kernel has no CPU mode")
-    for case in sorted(CASES):
-        shape, dtype, oh, ow = CASES[case]
-        x = torch.from_numpy(_frames(shape, dtype, 3)).cuda()
-        for normalize in (True, False):
-            before = resize_normalize.launches
-            got = resize_normalize(x, oh, ow, normalize=normalize)
-            torch.cuda.synchronize()
-            assert resize_normalize.launches == before + 1
-            want = resize_normalize_plain(x, oh, ow, normalize=normalize)
-            assert got.shape == want.shape and got.dtype == torch.float32
-            gate = 4 * 2.0 ** -23 * (1.0 if normalize else 256.0)
-            assert float((got - want).abs().max()) <= gate, case
+    shape, dtype, oh, ow = CASES[case] if case in CASES else CARD_CASES[case]
+    x = (_offset_frames(shape, 3) if dtype == "offset"
+         else torch.from_numpy(_frames(shape, dtype, 3)).cuda())
+
+    def plain_on_cpu_only(frames, *args, **kwargs):
+        assert frames.device.type == "cpu", "plain version on the card"
+        return plain(frames, *args, **kwargs)
+
+    plain = kresize.resize_normalize_plain
+    monkeypatch.setattr(kresize, "resize_normalize_plain", plain_on_cpu_only)
+    for normalize in (True, False):
+        before = resize_normalize.launches
+        got = resize_normalize(x, oh, ow, normalize=normalize)
+        torch.cuda.synchronize()
+        assert resize_normalize.launches == before + 1
+        want = plain(x, oh, ow, normalize=normalize)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        gate = 4 * 2.0 ** -23 * (1.0 if normalize else 256.0)
+        assert float((got - want).abs().max()) <= gate, case
     with pytest.raises(ValueError):
         resize_normalize(x.permute(0, 2, 1, 3), 4, 4)
