@@ -11,7 +11,9 @@ Phases, one report line each, any failed check raising:
 4. K1       the corpus gather kernel at the training shape (64 ids with
             duplicates and out-of-range values) against its plain PyTorch
             version, and timed beside it and, as an aside (a copy only, no
-            widen or scale), beside torch.index_select;
+            widen or scale), beside torch.index_select; then the same at
+            train-dcgan's shape (case=stills: 64 rows of 64x64x3, the
+            corpus's frames as stills);
 5. K2       the resize + normalize kernel at the feed's shape ((1024, 256,
             256, 3) uint8 -> 64x64, scaled), on a float32 non-square case,
             on unaligned rows (W*C = 363, and the feed's shape one byte
@@ -40,9 +42,20 @@ Phases, one report line each, any failed check raising:
             one step and the one-pair bound; the median flow must recover
             the shifts;
 8. check    the port's model on the card against the same model on the CPU,
-            float32 (TF32 off), at a small config: a sample and a train step;
+            float32 (TF32 off): the video GAN at a small config (a sample
+            and a train step), and one image-DCGAN train step at the
+            flagship width from one converted state (losses, weights);
 9. serve    sample-wall requests of 64 videos at the flagship width
             (bench.py's _flagship config, random weights from --seed);
+9b. workflow the reference's workflow through the port's CLI, in process
+            (gifgan_tpu_torch.cli.main), at the flagship width: train-dcgan
+            (--device-corpus, 12 steps in chunks of 4: K1 once a step) ->
+            train-vid grafting that run's image GAN (--device-corpus, 8
+            steps: K1 once a step) -> sample-wall (2 requests of 64 GIFs).
+            It checks the K1 launches against the step counts, finite
+            losses, each run's files, the grafted image nets in train-vid's
+            checkpoint bit-equal to train-dcgan's final ones, and the image
+            checkpoint restoring into a fresh TrainState;
 10. train   train_chunk_ids, K = 4 steps of B = 64 clips at the flagship
             width, frames gathered by K1 from the resident corpus;
 11. prep    2 synthetic 48-frame 360x480 source GIFs with a drifting,
@@ -64,11 +77,12 @@ Phases, one report line each, any failed check raising:
             paths, 16 frames, K2 to 64x64 on the card), then one
             train_chunk of K = 2 steps at the flagship width on the batches.
 
-The launch counts are zeroed just before each of serve, train, prep, track
-and feed and read just after. Then a `kernels` JSON line, the nvidia-smi
+The launch counts are zeroed just before each of serve, the three
+workflow commands, train, prep, track and feed and read just after. Then a `kernels` JSON line, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Without CUDA it
 exits 2 and prints no result. --profile adds a torch.profiler table of one
-training step and cProfile's table of the track phase's dispatcher thread.
+video training step (train) and one image-DCGAN step (workflow), and
+cProfile's table of the track phase's dispatcher thread.
 """
 
 from __future__ import annotations
@@ -90,8 +104,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gifgan_tpu_torch import cli
+from gifgan_tpu_torch.core import checkpoint as ckpt
+from gifgan_tpu_torch.core import interop
 from gifgan_tpu_torch.core.config import (DCGANConfig, TrackConfig,
-                                          TrainConfig, VidGANConfig)
+                                          TrainConfig, VidGANConfig,
+                                          load_config)
 from gifgan_tpu_torch.data.device import DeviceCorpus
 from gifgan_tpu_torch.data.loader import clip_batches_from_files
 from gifgan_tpu_torch.data.synthetic import synthetic_clips
@@ -107,6 +125,7 @@ from gifgan_tpu_torch.kernels.haar_stages import (haar_stages,
 from gifgan_tpu_torch.kernels.resize import (interp_taps, launch_plan,
                                              resize_normalize,
                                              resize_normalize_plain)
+from gifgan_tpu_torch.serve import sampler
 from gifgan_tpu_torch.serve.sampler import gif_wall, vid_sample_fn
 from gifgan_tpu_torch.track import pipeline as tpipe
 from gifgan_tpu_torch.track import synthetic_cascade
@@ -116,7 +135,7 @@ from gifgan_tpu_torch.track.haar_device import (DeviceHaarDetector,
                                                 letterbox_stack)
 from gifgan_tpu_torch.track.pipeline import process_video
 from gifgan_tpu_torch.track.stats import TrackStats
-from gifgan_tpu_torch.train import vid
+from gifgan_tpu_torch.train import gan, vid
 
 # H100 SXM data-sheet peaks (NVIDIA), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -146,6 +165,14 @@ K3_FRAMES, K3_SIZE, EARLY_STAGES = 16, 256, 10
 OPS_PER_WINDOW, NODE_OPS = 20, 5
 # feed: the crop GIFs repeated to one flagship batch per epoch
 FEED_PATHS, FEED_EPOCHS, FEED_STEPS, CLIP_LEN, CLIP_SIZE = 64, 3, 2, 16, 64
+# workflow: steps of train-dcgan (8 batches an epoch of the default 512
+# stills, so it crosses an epoch) and of train-vid, and sample-wall requests
+DCGAN_STEPS, VID_STEPS, WALL_REQUESTS, WF_CHUNK = 12, 8, 2, 4
+# the flagship image widths (the vid widths are train-vid's defaults: z 120
+# -> 100, T 16, hidden 512, d_filters 256)
+WF_MODEL_FLAGS = ["--output-size", "64", "--z-dim", "100", "--gf-dim", "64",
+                  "--df-dim", "64", "--compute-dtype", "bfloat16",
+                  "--packed-c3"]
 DEVICE = "cuda"
 KERNELS = [{
     "name": "gather_rows_scaled",
@@ -323,6 +350,42 @@ def phase_k1(corpus, seed):
             "library_call": "none: no single PyTorch call computes the "
                             "function",
             "aside_index_select_u8_copy_ms": lib_ms}
+
+
+def phase_k1_stills(corpus, seed):
+    """K1 at train-dcgan's shape: (B, 64*64*3) rows of a stills corpus, here
+    the resident clips' frames viewed as (N*T, 12288)."""
+    d = CLIP_SIZE * CLIP_SIZE * 3
+    data = corpus.data.view(-1, d)
+    n = data.shape[0]
+    rng = np.random.default_rng(seed + 11)
+    ids = rng.integers(0, n, BATCH)
+    ids[1] = ids[2] = ids[0]                     # duplicates
+    ids[3], ids[4] = n + 17, -3                  # out of range
+    idx = torch.as_tensor(ids, device="cuda")
+    got = gather_rows_scaled(data, idx)
+    want = gather_rows_scaled_plain(data, idx)
+    torch.cuda.synchronize()
+    check(got.shape == (BATCH, d), "K1 stills shape")
+    err = float((got - want).abs().max())
+    check(err <= 2.0 ** -23, f"K1 stills within 1 ulp: {err}")
+    sets = [(data, torch.as_tensor(rng.integers(0, n, BATCH), device="cuda"))
+            for _ in range(64)]
+    ms = graph_ms(gather_rows_scaled, sets)
+    plain_ms = graph_ms(gather_rows_scaled_plain, sets)
+    ms2 = graph_ms(gather_rows_scaled, sets)
+    unique = int(torch.unique(idx.clamp(0, n - 1)).numel())
+    nbytes = unique * d + BATCH * d * 4 + BATCH * 8
+    bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                   2 * BATCH * d / F32_FLOPS) * 1e3
+    kernel_ms = min(ms, ms2)
+    say("K1", case="stills", rows=BATCH, row_bytes=d, max_abs_err=err,
+        tolerance=2.0 ** -23, unique_rows=unique,
+        kernel_ms=f"{ms:.5f},{ms2:.5f}", plain_ms=f"{plain_ms:.5f}",
+        bound_ms=f"{bound_ms:.5f}", bound_bytes=nbytes,
+        bound_share=f"{bound_ms / kernel_ms:.3f}")
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes"}
 
 
 def k2_needed_bytes(n, h, w, c, oh, ow, element_size):
@@ -1026,10 +1089,59 @@ def phase_check(seed):
     m_err = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6)
                 for k in m_cpu)
     check(m_err < 1e-3, f"train-step metrics card vs CPU rel err {m_err}")
-    torch.backends.cudnn.allow_tf32 = tf32[0]
-    torch.backends.cuda.matmul.allow_tf32 = tf32[1]
     say("check", sample_rel_err=f"{s_err:.3g}",
         train_metrics_rel_err=f"{m_err:.3g}", d_loss=m_gpu["d_loss"])
+
+    # one image-DCGAN step at the flagship width, float32, from one state
+    # converted onto each device (interop, as a checkpoint carries it). The
+    # Adam slots are warm (count 3): from fresh slots Adam's first update
+    # moves a weight with a gradient at rounding level (~1e-8, Adam's eps)
+    # by a different fraction of lr on each device, and the G loss of the
+    # next update reads that as a spread of a few 1e-3
+    icfg = DCGANConfig(output_size=64, c_dim=3, z_dim=100, gf_dim=64,
+                       df_dim=64, packed_c3=True)
+    itcfg = TrainConfig(batch_size=BATCH)
+    flat = interop.to_jax_flat(gan.init_train_state(
+        torch.Generator().manual_seed(seed + 5), icfg, itcfg, device="cpu"))
+    for k, v in flat.items():
+        if k.endswith("/count"):
+            flat[k] = np.full_like(v, 3)
+        elif "/mu/" in k:
+            flat[k] = (1e-3 * rng.standard_normal(v.shape)).astype(v.dtype)
+        elif "/nu/" in k:
+            flat[k] = (1e-6 * (1 + rng.random(v.shape))).astype(v.dtype)
+    images = rng.uniform(-1, 1, (BATCH, 64, 64, 3)).astype(np.float32)
+    z = rng.uniform(-1, 1, (BATCH, 100)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ts = gan.TrainState.from_tree(interop.from_jax_flat(flat, dev))
+        t = time.perf_counter()
+        ts, m = gan.train_step(ts, torch.from_numpy(images).to(dev),
+                               torch.from_numpy(z).to(dev), None, icfg,
+                               itcfg)
+        out[dev] = (interop.to_jax_flat(ts),
+                    {k: float(v) for k, v in m.items()},
+                    (time.perf_counter() - t) * 1e3)
+    (p_cpu, m_cpu, cpu_ms), (p_gpu, m_gpu, _) = out["cpu"], out["cuda"]
+    m_err = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6)
+                for k in m_cpu)
+    check(m_err < 1e-3, f"image-GAN step metrics card vs CPU rel err {m_err}")
+    # Adam moves a weight by ~lr whatever its gradient's size, so a
+    # gradient at rounding level may part the two by up to ~lr an update
+    p_err = max(float(np.abs(p_gpu[k] - p_cpu[k]).max()) for k in p_cpu
+                if k.startswith("params/")) / itcfg.learning_rate
+    check(p_err <= 3.0, f"image-GAN weights card vs CPU: {p_err} x lr")
+    s_err = max(float(np.abs(p_gpu[k] - p_cpu[k]).max()
+                      / max(np.abs(p_cpu[k]).max(), 1e-6))
+                for k in p_cpu if k.startswith("state/"))
+    check(s_err < 1e-3, f"image-GAN BN state card vs CPU rel err {s_err}")
+    torch.backends.cudnn.allow_tf32 = tf32[0]
+    torch.backends.cuda.matmul.allow_tf32 = tf32[1]
+    say("check", model=f"dcgan 64x64 gf=df=64 batch {BATCH} float32",
+        train_metrics_rel_err=f"{m_err:.3g}",
+        weights_max_abs_err_over_lr=f"{p_err:.3g}",
+        bn_state_rel_err=f"{s_err:.3g}", d_loss=m_gpu["d_loss"],
+        g_loss=m_gpu["g_loss"], cpu_step_ms=f"{cpu_ms:.0f}")
 
 
 def phase_serve(ts, cfg):
@@ -1064,6 +1176,190 @@ def phase_serve(ts, cfg):
     say("serve", requests=REQUESTS, videos_per_request=BATCH,
         ms_per_request=",".join(f"{t:.1f}" for t in times),
         sample_ms_device=f"{sample_ms:.3f}", launches=launches)
+
+
+def _records(run_dir):
+    with open(os.path.join(run_dir, "train_metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _drive(argv):
+    """cli.main(argv) with the launch counts zeroed before and read after;
+    (seconds, launches, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    check(cli.main(argv) == 0, f"{argv[0]} exits 0")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t, read_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def _check_run(name, run_dir, steps, grids):
+    """A training run's files, finite losses and step times (ms/step of
+    each logged chunk from the metrics log's steps_per_sec)."""
+    recs = _records(run_dir)
+    check(recs and recs[-1]["step"] == steps, f"{name} ran {steps} steps")
+    for r in recs:
+        check(math.isfinite(r["d_loss"]) and math.isfinite(r["g_loss"]),
+              f"{name} losses finite at step {r['step']}")
+    for f in ["params.json", "train_metrics.jsonl"]:
+        check(os.path.exists(os.path.join(run_dir, f)), f"{name} {f}")
+    names = os.listdir(run_dir)
+    for prefix, ext in grids:
+        check(any(n.startswith(prefix) and n.endswith(ext) for n in names),
+              f"{name} wrote a {prefix}*{ext} grid: {sorted(names)}")
+    check(ckpt.latest_step(os.path.join(run_dir, "checkpoints")) == steps,
+          f"{name} final checkpoint at step {steps}")
+    return [1e3 / r["steps_per_sec"] for r in recs], recs[-1]
+
+
+def phase_workflow(seed, workdir, profile=False):
+    """train-dcgan -> train-vid with its image GAN grafted -> sample-wall,
+    through the port's CLI at the flagship width."""
+    img, vid_run, wall = (os.path.join(workdir, n)
+                          for n in ("img", "vid", "wall"))
+    flags = WF_MODEL_FLAGS + [
+             "--batch-size", str(BATCH),
+             "--sample-every", "8", "--checkpoint-every", "8",
+             "--seed", str(seed), "--device-corpus", "--chunk",
+             str(WF_CHUNK)]
+    k1 = {}
+    for name, argv, steps, grids in (
+            ("train_dcgan", ["train-dcgan", "--run-dir", img, "--dataset",
+                             "synthetic", "--steps-limit", str(DCGAN_STEPS)],
+             DCGAN_STEPS, [("train_", ".png")]),
+            ("train_vid", ["train-vid", "--run-dir", vid_run,
+                           "--steps-limit", str(VID_STEPS),
+                           "--first-frame-loss-scalar", "1.0",
+                           "--image-gan-checkpoint",
+                           os.path.join(img, "checkpoints")],
+             VID_STEPS, [("sample_", ".gif"), ("cross_sample_", ".gif")])):
+        secs, launches, peak = _drive(argv + flags)
+        k1[name] = launches["gather_rows_scaled"]
+        check(k1[name] == steps, f"{name}: K1 launched once a step: "
+                                 f"{launches}")
+        chunk_ms, last = _check_run(name, argv[2], steps, grids)
+        say("workflow", run=name, steps=steps, chunk=WF_CHUNK,
+            ms_per_step_first=f"{chunk_ms[0]:.2f}",
+            ms_per_step_warm_median=f"{float(np.median(chunk_ms[1:])):.2f}",
+            ms_per_step_chunks=",".join(f"{t:.2f}" for t in chunk_ms),
+            seconds=f"{secs:.2f}", peak_bytes=peak,
+            d_loss=f"{last['d_loss']:.5f}", g_loss=f"{last['g_loss']:.5f}",
+            launches=launches)
+
+    # the graft: train-vid's frozen image nets are train-dcgan's final ones
+    want = ckpt.load_flat(os.path.join(img, "checkpoints"))
+    got = ckpt.load_flat(os.path.join(vid_run, "checkpoints"))
+    leaves = 0
+    for k, v in want.items():
+        if k.startswith(("params/", "state/")):
+            top, net, rest = k.split("/", 2)
+            g = got[f"{top}/img_{net}/{rest}"]
+            check(g.dtype == v.dtype and np.array_equal(g, v),
+                  f"grafted {k} bit-equal")
+            leaves += 1
+    # and the image checkpoint restores into a fresh state
+    doc = load_config(os.path.join(img, "params.json"))
+    fresh = gan.init_train_state(torch.Generator().manual_seed(seed + 9),
+                                 doc["model"], doc["train"], device=DEVICE)
+    restored = ckpt.restore(os.path.join(img, "checkpoints"), fresh)
+    back = interop.to_jax_flat(restored)
+    check(isinstance(restored, gan.TrainState) and sorted(back) == sorted(want)
+          and all(np.array_equal(back[k], want[k]) for k in want),
+          "train-dcgan checkpoint restores into a fresh TrainState")
+    if profile:
+        icfg, itcfg = doc["model"], doc["train"]
+        side, c = icfg.output_size, icfg.c_dim
+        g = torch.Generator(device=DEVICE).manual_seed(seed + 12)
+        stills = torch.randint(0, 256, (8 * BATCH, side * side * c),
+                               dtype=torch.uint8, device=DEVICE, generator=g)
+        ids = torch.randint(0, 8 * BATCH, (1, BATCH), device=DEVICE,
+                            generator=g)
+        z = torch.rand(1, BATCH, icfg.z_dim, device=DEVICE, generator=g)
+        step = lambda: gan.train_chunk_ids(
+            restored, ids, z * 2 - 1, g, stills, icfg, itcfg,
+            lambda d, i: gather_rows_scaled(d, i).reshape(-1, side, side, c))
+        step()                                       # warm
+        profile_step("train_dcgan", step)
+
+    calls = []
+    timed_wall = sampler.gif_wall
+
+    def gif_wall_timed(*a, **kw):
+        t = time.perf_counter()
+        n = timed_wall(*a, **kw)
+        calls.append((time.perf_counter() - t) * 1e3)
+        return n
+
+    sampler.gif_wall = gif_wall_timed
+    try:
+        secs, launches, peak = _drive(
+            ["sample-wall", "--checkpoint", os.path.join(vid_run,
+                                                         "checkpoints"),
+             "--out-dir", wall, "--num-batches", str(WALL_REQUESTS),
+             "--batch-size", str(BATCH), "--seed", str(seed)])
+    finally:
+        sampler.gif_wall = timed_wall
+    gifs = [f for f in os.listdir(wall) if f.endswith(".gif")]
+    check(len(gifs) == WALL_REQUESTS * BATCH, f"{len(gifs)} GIFs written")
+    vcfg = load_config(os.path.join(vid_run, "params.json"))["model"]
+    s = vcfg.image_gan.output_size
+    frames = read_gif(os.path.join(wall, gifs[0]))
+    check(frames.shape == (vcfg.vid_length, s, s, 3),
+          f"a wall GIF is {frames.shape}")
+    say("workflow", run="sample_wall", requests=WALL_REQUESTS,
+        videos_per_request=BATCH, gifs=len(gifs),
+        ms_per_request=f"{calls[0] / WALL_REQUESTS:.1f}",
+        seconds_with_checkpoint_load=f"{secs:.2f}", peak_bytes=peak)
+    say("workflow", graft="bit-equal", leaves=leaves,
+        restore="train-dcgan checkpoint into a fresh TrainState")
+    say("K1", case="stills", path="workflow",
+        launches_train_dcgan=k1["train_dcgan"],
+        launches_train_vid=k1["train_vid"])
+    return k1
+
+
+def profile_step(name, step):
+    """torch.profiler over one call of `step` (one warm training step): its
+    wall time, device busy time and idle share, the device time by kernel
+    group and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+
+    def self_dev(e):              # named self_cuda_time_total before 2.4
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # device-side rows only: an aten op's row repeats its kernels' time
+    rows = [e for e in p.key_averages() if self_dev(e) > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_total = sum(self_dev(e) for e in rows) / 1e3
+    say("profile", step=name, step_wall_ms=f"{wall:.2f}",
+        device_busy_ms=f"{dev_total:.2f}",
+        idle_share=f"{max(0.0, 1 - dev_total / wall):.3f}",
+        kernel_launches=sum(e.count for e in rows))
+    groups = {"conv_gemm": ("xmma", "gemm", "conv", "cudnn", "wgrad",
+                            "dgrad", "fprop"),
+              "gather_k1": ("gather_rows_scaled",)}
+    split = {g: 0.0 for g in (*groups, "other")}
+    for e in rows:
+        g = next((g for g, keys in groups.items()
+                  if any(k in e.key for k in keys)), "other")
+        split[g] += self_dev(e) / 1e3
+    say("profile", step=name,
+        **{f"{g}_ms": f"{v:.3f}" for g, v in split.items()})
+    rows.sort(key=lambda e: -self_dev(e))
+    for e in rows[:15]:
+        say("profile", step=name, kernel=repr(e.key[:90]), calls=e.count,
+            device_ms=f"{self_dev(e) / 1e3:.3f}")
 
 
 def phase_train(ts, cfg, tcfg, corpus, seed, profile):
@@ -1104,39 +1400,9 @@ def phase_train(ts, cfg, tcfg, corpus, seed, profile):
         g_loss=",".join(f"{x:.5f}" for x in m["g_loss"].tolist()),
         launches=launches)
     if profile:
-        from torch.profiler import ProfilerActivity, profile as prof
-
-        with prof(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as p:
-            t = time.perf_counter()
-            vid.train_chunk_ids(ts, ids[:1], z[:1], g, corpus.data, cfg,
-                                tcfg, corpus.fold_sample_fn)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-        def self_dev(e):          # named self_cuda_time_total before 2.4
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
-
-        # device-side rows only: an aten op's row repeats its kernels' time
-        rows = [e for e in p.key_averages() if self_dev(e) > 0
-                and e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_total = sum(self_dev(e) for e in rows) / 1e3
-        say("profile", step_wall_ms=f"{wall:.2f}",
-            device_busy_ms=f"{dev_total:.2f}",
-            idle_share=f"{max(0.0, 1 - dev_total / wall):.3f}")
-        groups = {"conv_gemm": ("xmma", "gemm", "conv", "cudnn", "wgrad",
-                                "dgrad", "fprop"),
-                  "gather_k1": ("gather_rows_scaled",)}
-        split = {g: 0.0 for g in (*groups, "other")}
-        for e in rows:
-            g = next((g for g, keys in groups.items()
-                      if any(k in e.key for k in keys)), "other")
-            split[g] += self_dev(e) / 1e3
-        say("profile", **{f"{g}_ms": f"{v:.3f}" for g, v in split.items()})
-        rows.sort(key=lambda e: -self_dev(e))
-        for e in rows[:15]:
-            say("profile", kernel=repr(e.key[:90]), calls=e.count,
-                device_ms=f"{self_dev(e) / 1e3:.3f}")
+        profile_step("train", lambda: vid.train_chunk_ids(
+            ts, ids[:1], z[:1], g, corpus.data, cfg, tcfg,
+            corpus.fold_sample_fn))
     return launches
 
 
@@ -1294,9 +1560,11 @@ def main(argv=None) -> int:
     smi = phase_card()
     phase_build()
     corpus = phase_corpus(args.seed)
-    measured = {"gather_rows_scaled": phase_k1(corpus, args.seed),
-                "resize_normalize": phase_k2(args.seed),
-                "lk_refine": phase_k4(args.seed)}
+    measured = {"gather_rows_scaled": phase_k1(corpus, args.seed)}
+    measured["gather_rows_scaled"]["stills"] = phase_k1_stills(corpus,
+                                                               args.seed)
+    measured.update({"resize_normalize": phase_k2(args.seed),
+                     "lk_refine": phase_k4(args.seed)})
     cascade_dir = tempfile.TemporaryDirectory()
     t = time.perf_counter()
     xml = synthetic_cascade.write_cascade(
@@ -1311,6 +1579,9 @@ def main(argv=None) -> int:
     ts = vid.init_train_state(torch.Generator().manual_seed(args.seed), cfg,
                               tcfg, device="cuda")
     phase_serve(ts, cfg)
+    with tempfile.TemporaryDirectory() as workdir:
+        measured["gather_rows_scaled"]["workflow_launches"] = \
+            phase_workflow(args.seed, workdir, args.profile)
     launches = {"train": phase_train(ts, cfg, tcfg, corpus, args.seed,
                                      args.profile)}
     with tempfile.TemporaryDirectory() as workdir:

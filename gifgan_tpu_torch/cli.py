@@ -1,14 +1,218 @@
 """Command line of the port: `python -m gifgan_tpu_torch <command>`.
 
-One command so far, `track`, with the flags of the JAX package's
-`python -m gifgan_tpu track` (gifgan_tpu/cli.py) plus `--device`: it runs on
-the CUDA card unless `--device cpu` is given.
+The commands `train-dcgan`, `train-vid`, `sample-wall` and `track`, with the
+flags of the JAX package's (gifgan_tpu/cli.py) plus `--device`: each runs
+on the CUDA card unless `--device cpu` is given. Not here yet: the mesh
+flags (`--data-parallel`, `--fsdp*`, `--tensor-parallel`,
+`--seq-parallel`) and the int8 ones (`--int8*`, `--quantized`).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+
+import numpy as np
+
+
+def _dcgan_cfg(args):
+    from gifgan_tpu_torch.core.config import DCGANConfig
+
+    return DCGANConfig(output_size=args.output_size, c_dim=args.c_dim,
+                       z_dim=args.z_dim, gf_dim=args.gf_dim,
+                       df_dim=args.df_dim, noise_std=args.image_noise,
+                       compute_dtype=args.compute_dtype,
+                       packed_c3=args.packed_c3)
+
+
+def _train_cfg(args):
+    from gifgan_tpu_torch.core.config import TrainConfig
+
+    return TrainConfig(
+        batch_size=args.batch_size, learning_rate=args.learning_rate,
+        d_learning_rate=args.d_learning_rate, beta1=args.beta1,
+        disc_updates=args.disc_updates, gen_updates=args.gen_updates,
+        epochs=args.epochs, sample_every=args.sample_every,
+        checkpoint_every=args.checkpoint_every,
+        max_checkpoints_to_keep=args.max_checkpoints_to_keep,
+        train_img_gen=getattr(args, "train_img_gen", False),
+        train_img_disc=getattr(args, "train_img_disc", False),
+        seed=args.seed, run_dir=args.run_dir)
+
+
+def _add_device_arg(p, what: str):
+    p.add_argument("--device", default=None,
+                   help=f"torch device of {what} (default: the CUDA card; "
+                        f"cpu runs the kernels' plain versions)")
+
+
+def _add_train_args(p, batch=64):
+    p.add_argument("--batch-size", type=int, default=batch)
+    p.add_argument("--learning-rate", type=float, default=2e-4)
+    p.add_argument("--d-learning-rate", type=float, default=None,
+                   help="TTUR: discriminator-specific LR (default: shared)")
+    p.add_argument("--beta1", type=float, default=0.5)
+    p.add_argument("--disc-updates", type=int, default=1)
+    p.add_argument("--gen-updates", type=int, default=2)
+    p.add_argument("--epochs", type=int, default=25)
+    p.add_argument("--sample-every", type=int, default=100)
+    p.add_argument("--checkpoint-every", type=int, default=500)
+    p.add_argument("--max-checkpoints-to-keep", type=int, default=5)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--run-dir", required=True)
+    p.add_argument("--steps-limit", type=int, default=None)
+    _add_device_arg(p, "the training run")
+
+
+def _add_dcgan_args(p):
+    p.add_argument("--output-size", type=int, default=64)
+    p.add_argument("--c-dim", type=int, default=3)
+    p.add_argument("--z-dim", type=int, default=100)
+    p.add_argument("--gf-dim", type=int, default=64)
+    p.add_argument("--df-dim", type=int, default=64)
+    p.add_argument("--image-noise", type=float, default=0.0)
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--packed-c3", action="store_true",
+                   help="phase-packed execution of the c-dim end layers "
+                        "(D input conv space-to-depth, G output deconv "
+                        "subpixel): the same function, another "
+                        "accumulation order")
+
+
+def _stills_u8(args, cfg) -> np.ndarray:
+    """(N, s, s, c) uint8 training stills: synthetic, or the png/jpg files
+    of a directory (read with imageio, resized with ops/image.py
+    resize_bilinear where they are another size, rounded back to uint8)."""
+    if args.dataset == "synthetic":
+        from gifgan_tpu_torch.data.synthetic import synthetic_stills
+
+        return synthetic_stills(args.dataset_size, size=cfg.output_size,
+                                channels=cfg.c_dim)
+    import imageio.v2 as imageio
+    import torch
+
+    from gifgan_tpu_torch.ops.image import resize_bilinear
+
+    files = sorted(
+        os.path.join(args.dataset, f) for f in os.listdir(args.dataset)
+        if f.lower().endswith((".png", ".jpg", ".jpeg")))
+    imgs = []
+    for f in files:
+        im = np.asarray(imageio.imread(f))
+        if im.ndim == 2:                       # grayscale -> channel dim
+            im = im[..., None]
+        if im.shape[-1] < cfg.c_dim:           # gray -> repeated channels
+            im = np.repeat(im, cfg.c_dim, axis=-1)
+        im = im[..., :cfg.c_dim]               # drop alpha / extra channels
+        if im.shape[:2] != (cfg.output_size,) * 2:
+            im = resize_bilinear(torch.from_numpy(im), cfg.output_size,
+                                 cfg.output_size).numpy()
+        imgs.append(np.clip(np.rint(im), 0, 255).astype(np.uint8))
+    return np.stack(imgs)
+
+
+def _stills_source(args, cfg):
+    """Host-iterator factory over the stills corpus ([-1, 1] float batches),
+    shuffled by the epoch seed the loop passes."""
+    from gifgan_tpu_torch.data.loader import batches_from_array
+
+    data = _stills_u8(args, cfg).astype(np.float32) / 127.5 - 1.0
+    return lambda epoch_seed=args.seed: batches_from_array(
+        data, args.batch_size, shuffle=True, seed=epoch_seed)
+
+
+def cmd_train_dcgan(args) -> None:
+    from gifgan_tpu_torch.train import loops
+
+    cfg = _dcgan_cfg(args)
+    if args.device_corpus:
+        loops.train_dcgan(None, cfg, _train_cfg(args),
+                          steps_limit=args.steps_limit, chunk=args.chunk,
+                          stills_u8=_stills_u8(args, cfg),
+                          device=args.device)
+        return
+    loops.train_dcgan(_stills_source(args, cfg), cfg, _train_cfg(args),
+                      steps_limit=args.steps_limit, chunk=args.chunk,
+                      device=args.device)
+
+
+def cmd_train_vid(args) -> None:
+    from gifgan_tpu_torch.core.config import VidGANConfig
+    from gifgan_tpu_torch.data.loader import batches_from_array
+    from gifgan_tpu_torch.train import loops
+
+    img_cfg = _dcgan_cfg(args)
+    cfg = VidGANConfig(z_input_size=args.vid_z_dim,
+                       z_output_size=args.z_dim,
+                       vid_length=args.vid_length,
+                       image_gan=img_cfg,
+                       image_noise_std=args.image_noise,
+                       activation_noise_std=args.activation_noise,
+                       first_frame_loss_scalar=args.first_frame_loss_scalar)
+    kw = dict(image_gan_ckpt=args.image_gan_checkpoint,
+              steps_limit=args.steps_limit, chunk=args.chunk,
+              auto_intervene=args.auto_intervene, device=args.device)
+
+    def clips_u8():
+        """The whole (N, T, s, s, c) uint8 clip corpus."""
+        if args.dataset == "synthetic":
+            from gifgan_tpu_torch.data.synthetic import synthetic_clips
+
+            return synthetic_clips(args.dataset_size, length=cfg.vid_length,
+                                   size=img_cfg.output_size,
+                                   channels=img_cfg.c_dim)
+        from gifgan_tpu_torch.data.video import decode_clip_batch
+
+        files = sorted(os.path.join(args.dataset, f)
+                       for f in os.listdir(args.dataset)
+                       if f.endswith((".mp4", ".avi")))
+        return decode_clip_batch(files, cfg.vid_length,
+                                 img_cfg.output_size, strict=False)
+
+    if args.device_corpus:
+        if args.dataset != "synthetic" and args.stream:
+            raise SystemExit("--device-corpus materializes the corpus on "
+                             "the card; it is incompatible with --stream")
+        loops.train_vid_dcgan(None, cfg, _train_cfg(args),
+                              clips_u8=clips_u8(), **kw)
+        return
+
+    if args.dataset != "synthetic" and args.stream:
+        # worker-pool decode; resize and normalize on the card (K2)
+        from gifgan_tpu_torch.data.loader import clip_batches_from_files
+
+        files = sorted(os.path.join(args.dataset, f)
+                       for f in os.listdir(args.dataset)
+                       if f.endswith((".mp4", ".avi", ".gif")))
+
+        def clips_iter(epoch_seed=args.seed):
+            yield from clip_batches_from_files(
+                files, args.batch_size, cfg.vid_length,
+                img_cfg.output_size, shuffle=True, seed=epoch_seed,
+                workers=args.data_workers, device=args.device)
+    else:
+        clips = clips_u8().astype(np.float32) / 127.5 - 1.0
+
+        def clips_iter(epoch_seed=args.seed):
+            for batch in batches_from_array(clips, args.batch_size,
+                                            shuffle=True, seed=epoch_seed):
+                yield batch.reshape(-1, *batch.shape[2:])
+
+    loops.train_vid_dcgan(clips_iter, cfg, _train_cfg(args), **kw)
+
+
+def cmd_sample_wall(args) -> None:
+    from gifgan_tpu_torch.serve.sampler import gif_wall, vid_sample_fn
+    from gifgan_tpu_torch.train.vid import load_vid_train_state
+
+    cfg, ts = load_vid_train_state(args.checkpoint, device=args.device)
+    n = gif_wall(vid_sample_fn(ts, cfg), cfg.z_input_size, args.out_dir,
+                 batch_size=args.batch_size,
+                 num_batches=None if args.continuous else args.num_batches,
+                 continuous=args.continuous, fps=args.fps, seed=args.seed)
+    print(f"wrote {n} gifs to {args.out_dir}")
 
 
 def cmd_track(args) -> None:
@@ -33,6 +237,63 @@ def cmd_track(args) -> None:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="gifgan_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("train-dcgan", help="train the image DCGAN")
+    p.add_argument("--chunk", type=int, default=1,
+                   help="batches per train_chunk call")
+    p.add_argument("--device-corpus", action="store_true",
+                   help="upload the uint8 corpus to the card once and "
+                        "gather each batch there (K1); the host ships ids")
+    _add_dcgan_args(p)
+    _add_train_args(p)
+    p.add_argument("--dataset", default="synthetic",
+                   help="'synthetic' or a directory of images")
+    p.add_argument("--dataset-size", type=int, default=512)
+    p.set_defaults(fn=cmd_train_dcgan)
+
+    p = sub.add_parser("train-vid", help="train the recurrent-z video GAN")
+    _add_dcgan_args(p)
+    _add_train_args(p)
+    p.add_argument("--dataset", default="synthetic")
+    p.add_argument("--dataset-size", type=int, default=256)
+    p.add_argument("--vid-z-dim", type=int, default=120)
+    p.add_argument("--vid-length", type=int, default=16)
+    p.add_argument("--activation-noise", type=float, default=0.0)
+    p.add_argument("--first-frame-loss-scalar", type=float, default=0.0)
+    p.add_argument("--image-gan-checkpoint", default=None,
+                   help="a train-dcgan run's checkpoints dir, grafted into "
+                        "the frozen image nets")
+    p.add_argument("--chunk", type=int, default=1,
+                   help="batches per train_chunk call")
+    p.add_argument("--stream", action="store_true",
+                   help="stream-decode clips from the --dataset dir on "
+                        "worker threads, resized on the card (K2), instead "
+                        "of loading all in memory")
+    p.add_argument("--data-workers", type=int, default=4,
+                   help="decode worker threads for --stream")
+    p.add_argument("--device-corpus", action="store_true",
+                   help="upload the uint8 clip corpus to the card once and "
+                        "gather each batch there (K1); incompatible with "
+                        "--stream")
+    p.add_argument("--train-img-gen", action="store_true")
+    p.add_argument("--train-img-disc", action="store_true")
+    p.add_argument("--auto-intervene", action="store_true",
+                   help="closed-loop collapse controller "
+                        "(train/controller.py): per-chunk d_loss drives the "
+                        "noise and D-lr knobs")
+    p.set_defaults(fn=cmd_train_vid)
+
+    p = sub.add_parser("sample-wall", help="continuous GIF sampler")
+    p.add_argument("--checkpoint", required=True,
+                   help="run_dir/checkpoints of a train-vid run")
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--num-batches", type=int, default=1)
+    p.add_argument("--continuous", action="store_true")
+    p.add_argument("--fps", type=float, default=8.0)
+    p.add_argument("--seed", type=int, default=0)
+    _add_device_arg(p, "the sampler")
+    p.set_defaults(fn=cmd_sample_wall)
 
     p = sub.add_parser("track", help="face-track preprocessing over a dir")
     p.add_argument("--input-directory", required=True)
@@ -61,9 +322,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--detect-batch", type=int, default=1,
                    help="with the device detector: decode N files per group "
                         "and detect them in one dispatch (detect_clips)")
-    p.add_argument("--device", default=None,
-                   help="torch device of the device kernels (default: the "
-                        "CUDA card; cpu runs their plain versions)")
+    _add_device_arg(p, "the device kernels")
     p.set_defaults(fn=cmd_track)
     return ap
 

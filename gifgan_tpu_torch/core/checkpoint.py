@@ -6,9 +6,19 @@ sorted keys and their dtypes) — the layout of gifgan_tpu/core/checkpoint.py
 `save`, so either package lists, loads and writes the other's steps.
 
 The path scheme is the JAX one: dict keys and NamedTuple field names joined
-by "/". The arrays are stored as given; core/interop.py converts a port
-train state to the JAX package's layouts and key names before `save` when
-the JAX package is to read it back.
+by "/" (core/tree.py). On disk the weights are always in the JAX package's
+layouts and key names, so a step written by either package loads into
+either:
+
+- `save` stores the arrays as given: pass it `interop.to_jax_flat(state)`;
+- `AsyncCheckpointer.save` takes a port state and converts it itself;
+- `restore` and `graft` read into a port state through
+  `interop.from_jax_flat`, matching leaves by their JAX keys.
+
+`restore`/`graft` are the reference's pytree surgery (gifgan_tpu/core/
+checkpoint.py:108, :146): restore all but some paths, or load a smaller
+tree's checkpoint into a subtree (the image GAN into the video GAN). A
+restore or graft that matches no key raises.
 """
 
 from __future__ import annotations
@@ -17,39 +27,15 @@ import json
 import os
 import re
 import shutil
-from typing import Any, Dict, List, Optional
+import warnings
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-SEP = "/"
-
-
-def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
-    """{path: leaf} over nested dicts and NamedTuples (fields by name);
-    anything else is a leaf. Dict keys are visited in sorted order."""
-    if hasattr(tree, "_fields"):
-        items = [(f, getattr(tree, f)) for f in tree._fields]
-    elif isinstance(tree, dict):
-        items = sorted(tree.items())
-    else:
-        return {prefix: tree}
-    flat = {}
-    for k, v in items:
-        flat.update(flatten(v, f"{prefix}{SEP}{k}" if prefix else str(k)))
-    return flat
-
-
-def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
-    """Inverse of `flatten` into nested plain dicts."""
-    tree: Dict[str, Any] = {}
-    for key, leaf in flat.items():
-        *parents, last = key.split(SEP)
-        node = tree
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[last] = leaf
-    return tree
+from gifgan_tpu_torch.core import interop
+from gifgan_tpu_torch.core.tree import SEP, flatten, like
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -109,3 +95,118 @@ def load_flat(ckpt_dir: str, step: Optional[int] = None) -> Dict[str, np.ndarray
     path = os.path.join(ckpt_dir, f"step_{step:010d}", "arrays.npz")
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+def _device(tree: Any) -> torch.device:
+    for leaf in flatten(tree).values():
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    return torch.device("cpu")
+
+
+def _load_into(op: str, ckpt_dir: str, target: Any, step: Optional[int],
+               ckpt_key: Callable[[str], Optional[str]],
+               warn_unconsumed: bool = False) -> Any:
+    """`target` with each leaf whose JAX key k has ckpt_key(k) in the
+    checkpoint replaced by that array (cast to the leaf's dtype and shape);
+    ckpt_key(k) None keeps the leaf. Same structure and device as target."""
+    flat_ckpt = load_flat(ckpt_dir, step)
+    new, matched, missing = {}, [], []
+    for key, leaf in interop.to_jax_flat(target).items():
+        ck = ckpt_key(key)
+        if ck is not None and ck in flat_ckpt:
+            leaf = np.asarray(flat_ckpt[ck], dtype=leaf.dtype).reshape(
+                leaf.shape)
+            matched.append(ck)
+        elif ck is not None:
+            missing.append(ck)
+        new[key] = leaf
+    _check_match(op, ckpt_dir, matched, missing, flat_ckpt, warn_unconsumed)
+    return like(target, interop.from_jax_flat(new, _device(target)))
+
+
+def restore(ckpt_dir: str, target: Any, step: Optional[int] = None,
+            exclude: Sequence[str] = (), prefix: str = "") -> Any:
+    """Restore a port state from a step (the latest when `step` is None).
+
+    exclude: JAX-key path prefixes to keep at target's values. prefix: a
+    target leaf with JAX key k is read from checkpoint key prefix + k."""
+    def ckpt_key(key):
+        if any(key == e or key.startswith(e + SEP) for e in exclude):
+            return None
+        return prefix + key
+
+    return _load_into("restore", ckpt_dir, target, step, ckpt_key,
+                      warn_unconsumed=not exclude and not prefix)
+
+
+def graft(ckpt_dir: str, target: Any, subpath: str, ckpt_prefix: str = "",
+          step: Optional[int] = None) -> Any:
+    """Load a checkpoint of a smaller tree into the subtree `subpath` (a JAX
+    key prefix) of a port state: the leaf at `subpath/REST` is read from
+    checkpoint key `ckpt_prefix + REST`; every other leaf is kept. E.g. an
+    image-GAN checkpoint into a video-GAN state: subpath
+    "params/img_generator", ckpt_prefix "params/generator/"."""
+    sp = subpath.rstrip(SEP) + SEP
+    return _load_into(
+        "graft", ckpt_dir, target, step,
+        lambda key: ckpt_prefix + key[len(sp):] if key.startswith(sp)
+        else None)
+
+
+def _check_match(op: str, ckpt_dir: str, matched: List[str],
+                 missing: List[str], flat_ckpt: Dict[str, np.ndarray],
+                 warn_unconsumed: bool = False) -> None:
+    """Raise when no key matched (a no-op restore would leave random
+    weights in place); warn on target leaves without a key and, for a
+    plain full restore, on checkpoint keys nothing consumed."""
+    if not matched:
+        raise KeyError(
+            f"{op}: 0 of {len(missing)} target leaves matched any checkpoint "
+            f"key in {ckpt_dir} — wrong prefix/subpath or architecture? "
+            f"wanted e.g. {missing[:5]}, checkpoint has e.g. "
+            f"{sorted(flat_ckpt)[:5]}")
+    if missing:
+        warnings.warn(f"{op}: {len(missing)} target leaves had no checkpoint "
+                      f"key (kept current values), e.g. {missing[:5]}",
+                      stacklevel=3)
+    if warn_unconsumed:
+        unconsumed = sorted(set(flat_ckpt) - set(matched))
+        if unconsumed:
+            warnings.warn(f"{op}: {len(unconsumed)} checkpoint keys were not "
+                          f"consumed by any target leaf (layout mismatch?), "
+                          f"e.g. {unconsumed[:5]}", stacklevel=3)
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes on a worker thread.
+
+    `save` snapshots the port state to host numpy arrays in the JAX layout
+    (`interop.to_jax_flat`, fresh copies) on the caller's thread, so the
+    training loop may go on updating its tensors; the npz write and the
+    old-step removal run on the worker. One write is in flight at a time: a
+    second `save` first waits for the previous one. A write's error is
+    raised by the next `save`, `wait` or `close`."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pending = None
+
+    def save(self, ckpt_dir: str, step: int, tree: Any,
+             max_to_keep: int = 0):
+        self.wait()
+        host = interop.to_jax_flat(tree)
+        self._pending = self._pool.submit(save, ckpt_dir, step, host,
+                                          max_to_keep)
+        return self._pending
+
+    def wait(self) -> None:
+        if self._pending is not None:
+            fut, self._pending = self._pending, None
+            fut.result()
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown(wait=True)

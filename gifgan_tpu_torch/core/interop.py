@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from gifgan_tpu_torch import resolve_device
-from gifgan_tpu_torch.core.checkpoint import flatten, unflatten
+from gifgan_tpu_torch.core.tree import flatten, unflatten
 
 # layout name -> permutation from the JAX layout to the port's
 _TO_PORT = {

@@ -30,11 +30,11 @@ import torch
 from gifgan_tpu_torch import resolve_device
 from gifgan_tpu_torch.core import checkpoint as ckpt
 from gifgan_tpu_torch.core import interop
-from gifgan_tpu_torch.core.checkpoint import flatten, unflatten
 from gifgan_tpu_torch.core.config import TrainConfig, VidGANConfig, load_config
 from gifgan_tpu_torch.models import dcgan, vid_dcgan
 from gifgan_tpu_torch.ops import nn
-from gifgan_tpu_torch.train.gan import (Adam, AdamState, apply_updates,
+from gifgan_tpu_torch.train.gan import (Adam, AdamState, _differentiable,
+                                        _grads, _stack, apply_updates,
                                         make_optimizer, scale_updates)
 
 Tensor = torch.Tensor
@@ -135,21 +135,6 @@ def _real_activations(params, state, frames, cfg: VidGANConfig, gen,
                                       cfg.image_gan, train=False)
     pre_noise_std = nn.get_std(acts.reshape(acts.shape[0], -1))
     return nn.add_noise(gen, acts, act_std), pre_noise_std
-
-
-def _differentiable(tree: Dict):
-    """(keys, leaves, tree) with fresh grad-requiring leaves over `tree`."""
-    flat = flatten(tree)
-    leaves = [p.detach().requires_grad_(True) for p in flat.values()]
-    return list(flat), leaves, unflatten(dict(zip(flat, leaves)))
-
-
-def _grads(loss: Tensor, keys, leaves) -> Dict:
-    # the image D's h3 layers feed no loss here: their gradient is zero,
-    # as jax.grad gives it
-    gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return unflatten({k: torch.zeros_like(p) if g is None else g
-                      for k, p, g in zip(keys, leaves, gs)})
 
 
 def _d_grads(ts: VidTrainState, frames: Tensor, z: Tensor, gen,
@@ -259,10 +244,6 @@ def train_step(ts: VidTrainState, frames: Tensor, z: Tensor,
     return ts._replace(step=ts.step + 1), metrics
 
 
-def _stack(ms):
-    return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
-
-
 def train_chunk(ts: VidTrainState, frames_stack: Tensor, z_stack: Tensor,
                 gen, cfg: VidGANConfig, tcfg: TrainConfig,
                 knobs: Optional[Knobs] = None) -> Tuple[VidTrainState, Dict]:
@@ -306,6 +287,20 @@ def sample_videos(ts: VidTrainState, z: Tensor, cfg: VidGANConfig) -> Tensor:
     s = cfg.image_gan.output_size
     return frames.reshape(z.shape[0], cfg.vid_length, s, s,
                           cfg.image_gan.c_dim)
+
+
+def load_image_gan(ts: VidTrainState, ckpt_dir: str,
+                   step: Optional[int] = None) -> VidTrainState:
+    """Graft an image-GAN checkpoint (a train-dcgan run's: keys
+    `params/generator/...`, `state/discriminator/...`) into the nested
+    image nets of a video-GAN state, params and BN state (the reference's
+    load_image_gan, gifgan_tpu/train/vid.py:289)."""
+    for sub, pref in (("params/img_generator", "params/generator/"),
+                      ("params/img_discriminator", "params/discriminator/"),
+                      ("state/img_generator", "state/generator/"),
+                      ("state/img_discriminator", "state/discriminator/")):
+        ts = ckpt.graft(ckpt_dir, ts, sub, ckpt_prefix=pref, step=step)
+    return ts
 
 
 def load_vid_train_state(checkpoint_dir: str, device=None,

@@ -46,6 +46,25 @@ def test_jax_train_state_round_trip_bit_exact(train_img):
         np.testing.assert_array_equal(back[k], v, err_msg=k)
 
 
+def test_jax_dcgan_train_state_round_trip_bit_exact():
+    """JAX gan.init_train_state (params/generator/..., opt_g/0/...) -> port
+    gan.TrainState -> JAX: same keys, dtypes and bits."""
+    from gifgan_tpu.train import gan as jgan
+    from gifgan_tpu_torch.train import gan as tgan
+
+    ts = jax.jit(jgan.init_train_state, static_argnums=(1, 2))(
+        jax.random.PRNGKey(0), jconfig.DCGANConfig(**_IMG),
+        jconfig.TrainConfig())
+    flat = jckpt._flatten_with_paths(ts._asdict())
+    port = tgan.TrainState.from_tree(interop.from_jax_flat(flat, "cpu"))
+    assert port.params["generator"]["h1_deconv"]["w"].shape == (64, 32, 5, 5)
+    back = interop.to_jax_flat(port)
+    assert sorted(back) == sorted(flat)
+    for k, v in flat.items():
+        assert back[k].dtype == v.dtype and back[k].shape == v.shape, k
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
 def test_layouts_of_converted_weights():
     ts = jvid.init_train_state(jax.random.PRNGKey(0), _jcfg(),
                                jconfig.TrainConfig())

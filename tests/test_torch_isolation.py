@@ -47,7 +47,9 @@ def _entry_points():
     from gifgan_tpu_torch import cli
     from gifgan_tpu_torch.track import detect, haar_device, pipeline
     from gifgan_tpu_torch.track.boxes import Detection
-    from gifgan_tpu_torch.train import vid
+    from gifgan_tpu_torch.core.config import DCGANConfig
+    from gifgan_tpu_torch.core.rng import PRNGSequence
+    from gifgan_tpu_torch.train import gan, loops, vid
 
     frames = np.zeros((4, 48, 48, 3), np.uint8)
     track = [Detection(8, 8, 40, 40, i) for i in range(4)]
@@ -94,6 +96,19 @@ def _entry_points():
         "cli_track": lambda: cli.main(
             ["track", "--input-directory", "/none", "--output-directory",
              "/none", "--cascade", "/none.xml"]),
+        "gan_init_train_state": lambda: gan.init_train_state(
+            torch.Generator(), DCGANConfig(), TrainConfig()),
+        "PRNGSequence": lambda: PRNGSequence(0),
+        "train_dcgan": lambda: loops.train_dcgan(
+            None, DCGANConfig(), TrainConfig(run_dir="/none")),
+        "train_vid_dcgan": lambda: loops.train_vid_dcgan(
+            None, VidGANConfig(), TrainConfig(run_dir="/none")),
+        "cli_train_dcgan": lambda: cli.main(
+            ["train-dcgan", "--run-dir", "/none"]),
+        "cli_train_vid": lambda: cli.main(
+            ["train-vid", "--run-dir", "/none", "--device-corpus"]),
+        "cli_sample_wall": lambda: cli.main(
+            ["sample-wall", "--checkpoint", "/none", "--out-dir", "/none"]),
     }
 
 
