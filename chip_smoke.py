@@ -56,6 +56,20 @@ Phases, one report line each, any failed check raising:
             losses, each run's files, the grafted image nets in train-vid's
             checkpoint bit-equal to train-dcgan's final ones, and the image
             checkpoint restoring into a fresh TrainState;
+9c. serve_int8 int8 serving (ops/quant.py) at the flagship width: the
+            stack's BN moments from 40 train-mode passes, quantize_sampler
+            (2 mse calibration batches, bias correction) and 20 finishing
+            steps; int8_matmul's padded shapes card == CPU; every int32
+            accumulator of one q tree card == CPU from the same int8 input
+            (4 videos and one) and the stacks within the CPU tests'
+            tolerance; int8 (static and dynamic scales) against the
+            float32 sampler (PSNR, mae, corr); one request's device ms for
+            int8 and float, each contraction's im2col bytes and ms and
+            _int_mm ms beside its bound, the peak bytes at 64 and 256
+            videos; then quantize-export of the workflow's train-vid run ->
+            sample-wall --quantized (2 requests of 64 GIFs, the artifact's
+            bytes against the float checkpoint's) and sample-wall --int8
+            --int8-calib 2 through the CLI;
 10. train   train_chunk_ids, K = 4 steps of B = 64 clips at the flagship
             width, frames gathered by K1 from the resident corpus;
 11. prep    2 synthetic 48-frame 360x480 source GIFs with a drifting,
@@ -78,11 +92,14 @@ Phases, one report line each, any failed check raising:
             train_chunk of K = 2 steps at the flagship width on the batches.
 
 The launch counts are zeroed just before each of serve, the three
-workflow commands, train, prep, track and feed and read just after. Then a `kernels` JSON line, the nvidia-smi
+workflow commands, serve_int8 (no kernel of the four is on its path, and
+it reports their counts), train, prep, track and feed and read just
+after. Then a `kernels` JSON line, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Without CUDA it
 exits 2 and prints no result. --profile adds a torch.profiler table of one
-video training step (train) and one image-DCGAN step (workflow), and
-cProfile's table of the track phase's dispatcher thread.
+video training step (train), one image-DCGAN step (workflow) and one
+request's int8 and bf16 float sample (serve_int8), and cProfile's table of
+the track phase's dispatcher thread.
 """
 
 from __future__ import annotations
@@ -90,6 +107,8 @@ from __future__ import annotations
 import argparse
 import collections
 import cProfile
+import dataclasses
+import itertools
 import json
 import math
 import os
@@ -125,6 +144,10 @@ from gifgan_tpu_torch.kernels.haar_stages import (haar_stages,
 from gifgan_tpu_torch.kernels.resize import (interp_taps, launch_plan,
                                              resize_normalize,
                                              resize_normalize_plain)
+from gifgan_tpu_torch.models import vid_dcgan
+from gifgan_tpu_torch.models.dcgan import to_device
+from gifgan_tpu_torch.ops import quant
+from gifgan_tpu_torch.ops.image import denorm_u8
 from gifgan_tpu_torch.serve import sampler
 from gifgan_tpu_torch.serve.sampler import gif_wall, vid_sample_fn
 from gifgan_tpu_torch.track import pipeline as tpipe
@@ -173,6 +196,10 @@ DCGAN_STEPS, VID_STEPS, WALL_REQUESTS, WF_CHUNK = 12, 8, 2, 4
 WF_MODEL_FLAGS = ["--output-size", "64", "--z-dim", "100", "--gf-dim", "64",
                   "--df-dim", "64", "--compute-dtype", "bfloat16",
                   "--packed-c3"]
+# serve_int8: calibration batches, finishing steps, the card-vs-CPU batch
+INT8_CALIB, INT8_FINISH_STEPS, INT8_CHECK_VIDEOS, INT8_BIG_BATCH = 2, 20, 4, 256
+# the H100 SXM data sheet's dense int8 tensor-core rate
+INT8_OPS = 1979e12
 DEVICE = "cuda"
 KERNELS = [{
     "name": "gather_rows_scaled",
@@ -1196,6 +1223,27 @@ def _drive(argv):
             torch.cuda.max_memory_allocated())
 
 
+def _drive_wall(argv):
+    """_drive of a sample-wall command with its gif_wall call timed:
+    (ms per request, seconds, launches, peak bytes)."""
+    calls = []
+    timed_wall = sampler.gif_wall
+
+    def gif_wall_timed(*a, **kw):
+        t = time.perf_counter()
+        n = timed_wall(*a, **kw)
+        calls.append((time.perf_counter() - t) * 1e3)
+        return n
+
+    sampler.gif_wall = gif_wall_timed
+    try:
+        secs, launches, peak = _drive(argv)
+    finally:
+        sampler.gif_wall = timed_wall
+    return (calls[0] / int(argv[argv.index("--num-batches") + 1]), secs,
+            launches, peak)
+
+
 def _check_run(name, run_dir, steps, grids):
     """A training run's files, finite losses and step times (ms/step of
     each logged chunk from the metrics log's steps_per_sec)."""
@@ -1284,24 +1332,10 @@ def phase_workflow(seed, workdir, profile=False):
         step()                                       # warm
         profile_step("train_dcgan", step)
 
-    calls = []
-    timed_wall = sampler.gif_wall
-
-    def gif_wall_timed(*a, **kw):
-        t = time.perf_counter()
-        n = timed_wall(*a, **kw)
-        calls.append((time.perf_counter() - t) * 1e3)
-        return n
-
-    sampler.gif_wall = gif_wall_timed
-    try:
-        secs, launches, peak = _drive(
-            ["sample-wall", "--checkpoint", os.path.join(vid_run,
-                                                         "checkpoints"),
-             "--out-dir", wall, "--num-batches", str(WALL_REQUESTS),
-             "--batch-size", str(BATCH), "--seed", str(seed)])
-    finally:
-        sampler.gif_wall = timed_wall
+    ms, secs, launches, peak = _drive_wall(
+        ["sample-wall", "--checkpoint", os.path.join(vid_run, "checkpoints"),
+         "--out-dir", wall, "--num-batches", str(WALL_REQUESTS),
+         "--batch-size", str(BATCH), "--seed", str(seed)])
     gifs = [f for f in os.listdir(wall) if f.endswith(".gif")]
     check(len(gifs) == WALL_REQUESTS * BATCH, f"{len(gifs)} GIFs written")
     vcfg = load_config(os.path.join(vid_run, "params.json"))["model"]
@@ -1311,7 +1345,7 @@ def phase_workflow(seed, workdir, profile=False):
           f"a wall GIF is {frames.shape}")
     say("workflow", run="sample_wall", requests=WALL_REQUESTS,
         videos_per_request=BATCH, gifs=len(gifs),
-        ms_per_request=f"{calls[0] / WALL_REQUESTS:.1f}",
+        ms_per_request=f"{ms:.1f}",
         seconds_with_checkpoint_load=f"{secs:.2f}", peak_bytes=peak)
     say("workflow", graft="bit-equal", leaves=leaves,
         restore="train-dcgan checkpoint into a fresh TrainState")
@@ -1321,10 +1355,282 @@ def phase_workflow(seed, workdir, profile=False):
     return k1
 
 
-def profile_step(name, step):
-    """torch.profiler over one call of `step` (one warm training step): its
-    wall time, device busy time and idle share, the device time by kernel
-    group and the top kernels."""
+def _capture_acc(run):
+    """run() with ops/quant.py's int8 contractions recorded: (its result,
+    [(kind, int8 input, int8 weights, int32 accumulator)] in call order)."""
+    rec = []
+    lin, dec = quant._linear_acc, quant._deconv_acc
+
+    def wrap(kind, fn):
+        def f(xq, wq):
+            acc = fn(xq, wq)
+            rec.append((kind, xq, wq, acc))
+            return acc
+        return f
+
+    quant._linear_acc = wrap("linear", lin)
+    quant._deconv_acc = wrap("deconv", dec)
+    try:
+        out = run()
+    finally:
+        quant._linear_acc, quant._deconv_acc = lin, dec
+    return out, rec
+
+
+def _contraction_times(q, z, cfg):
+    """Each int8 contraction of one request: its (m, k, n) after the
+    sub-pixel im2col, im2col bytes and ms, _int_mm ms, the whole
+    accumulator's ms, and the bound of the product: its int8 operations at
+    INT8_OPS, counted from the real taps (m * wq.numel() multiply-adds: 25
+    of the sub-pixel matrix's 36 taps a phase set are real), or its int8
+    inputs and int32 output at HBM_BYTES_PER_S."""
+    _, rec = _capture_acc(lambda: vid.sample_videos_q(q, z, cfg))
+    rows = []
+    for (grp, name), (kind, xq, wq, _) in zip(quant._VID_LAYER_ORDER, rec):
+        if kind == "linear":
+            a, b, col_ms = xq, wq, 0.0
+            acc_fn = quant._linear_acc
+        else:
+            a = quant._deconv_cols(xq).reshape(-1, 9 * xq.shape[-1])
+            b = quant._subpixel_weight(wq)
+            col_ms = event_ms(quant._deconv_cols, [(xq,)], warmup=3, reps=20)
+            acc_fn = quant._deconv_acc
+        m, k, n = a.shape[0], a.shape[1], b.shape[1]
+        mm_ms = event_ms(quant.int8_matmul, [(a, b)], warmup=3, reps=20)
+        acc_ms = event_ms(acc_fn, [(xq, wq)], warmup=3, reps=20)
+        bound_ms = max(2 * m * wq.numel() / INT8_OPS,
+                       (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S) * 1e3
+        rows.append(dict(layer=f"{grp}/{name}", m=m, k=k, n=n,
+                         im2col_bytes=a.numel() if kind == "deconv" else 0,
+                         im2col_ms=col_ms, int_mm_ms=mm_ms, acc_ms=acc_ms,
+                         int_mm_bound_ms=bound_ms))
+        del a, b
+    return rows
+
+
+def phase_serve_int8(ts, cfg, seed, workdir, vid_ckpt, profile=False):
+    """int8 serving (ops/quant.py) at the flagship width: quantize,
+    calibrate, correct and finish the flagship stack; hold every int8
+    contraction on the card against the CPU; int8 against float; device
+    times; then the deployment workflow through the CLI on the workflow
+    phase's train-vid run."""
+    reset_counts()
+    # 1. BN running moments of the generators from train-mode passes
+    #    (decay 0.9: 40 passes leave 1.5 % of the init moments)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 30)
+    state = ts.state
+    with torch.no_grad():
+        for _ in range(40):
+            z = torch.rand(BATCH, cfg.z_input_size, device=DEVICE,
+                           generator=g) * 2 - 1
+            _, _, gs, igs = vid_dcgan.generate_videos(
+                ts.params, dict(state), z, cfg, train=True)
+            state = dict(state, vid_generator=gs, img_generator=igs)
+    ts = ts._replace(state=state)
+
+    # 2. quantize_sampler (mse calibration, bias correction), finishing
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    q, _ = vid.quantize_sampler(ts, cfg, calib_batches=INT8_CALIB,
+                                calib_mode="mse", bias_correct=True)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t
+    t = time.perf_counter()
+    q = quant.finish_vid_stack(q, ts.params, ts.state, cfg,
+                               steps=INT8_FINISH_STEPS, batch=BATCH)
+    torch.cuda.synchronize()
+    finish_s = time.perf_counter() - t
+    layers = [q[g_][n] for g_, n in quant._VID_LAYER_ORDER]
+    check(all(quant._is_q(l) and l["wq"].dtype == torch.int8 and "as" in l
+              for l in layers), "every layer int8 with a static scale")
+
+    # 3a. int8_matmul's padding on the card: the CPU test's shapes (rows of
+    #     a one-video request and odd ones, the stack's k and n), exact
+    g8 = torch.Generator().manual_seed(seed + 32)
+    bad = []
+    for m, k, n in itertools.product((1, 16, 17, 1024), (100, 121, 576),
+                                     (3, 12, 100, 8192)):
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g8)
+        b = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g8)
+        try:             # report every refused shape, then fail
+            got = quant.int8_matmul(a.to(DEVICE), b.to(DEVICE)).cpu()
+            if not torch.equal(got, quant.int8_matmul(a, b)):
+                bad.append(f"{m}x{k}x{n} differs")
+        except RuntimeError as e:
+            bad.append(f"{m}x{k}x{n} {str(e)[:160]}")
+    check(not bad, f"int8_matmul card == CPU: {bad}")
+    say("serve_int8", check="int8_matmul card == CPU", shapes=48)
+
+    # 3. the card against the CPU on one q tree and z: each int32
+    #    accumulator from the same int8 input, at 4 videos (m = 64 rows in
+    #    the MLP) and at one (m = 16: int8_matmul pads the rows)
+    q_cpu = to_device(q, "cpu")
+    zz = np.random.default_rng(seed + 31).uniform(
+        -1, 1, (INT8_CHECK_VIDEOS, cfg.z_input_size)).astype(np.float32)
+    for b in (INT8_CHECK_VIDEOS, 1):
+        z_cpu = torch.from_numpy(zz[:b])
+        v_cpu, rec_cpu = _capture_acc(
+            lambda: vid.sample_videos_q(q_cpu, z_cpu, cfg))
+        v_gpu, rec_gpu = _capture_acc(
+            lambda: vid.sample_videos_q(q, z_cpu.to(DEVICE), cfg))
+        check(len(rec_cpu) == len(rec_gpu) == len(quant._VID_LAYER_ORDER),
+              "9 int8 contractions a forward")
+        in_diff = []
+        for (grp, name), (kind, xq, wq, acc), (_, xq_g, _, _) in zip(
+                quant._VID_LAYER_ORDER, rec_cpu, rec_gpu):
+            fn = quant._linear_acc if kind == "linear" else quant._deconv_acc
+            acc_g = fn(xq.to(DEVICE), wq.to(DEVICE))
+            check(acc_g.dtype == torch.int32 and torch.equal(acc_g.cpu(), acc),
+                  f"{grp}/{name}: int32 accumulator card == CPU "
+                  f"({tuple(xq.shape)})")
+            in_diff.append(int((xq_g.cpu() != xq).sum()))
+        d = (v_gpu.cpu() - v_cpu).abs().double()
+        check(float(d.mean()) <= 1e-5 and float((d > 1e-3).double().mean())
+              <= 1e-3, f"int8 stack card vs CPU: mean {float(d.mean())}, "
+                       f"{int((d > 1e-3).sum())} past 1e-3")
+        say("serve_int8", check=f"card vs CPU, {b} videos",
+            accumulators_equal=len(rec_cpu),
+            int8_inputs_differing=",".join(map(str, in_diff)),
+            stack_max_abs_err=f"{float(d.max()):.3g}",
+            stack_mean_abs_err=f"{float(d.mean()):.3g}")
+
+    # 4. int8 against float32 (TF32 off) on the card, one request's z
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                image_gan=dataclasses.replace(
+                                    cfg.image_gan, compute_dtype="float32"))
+    z = torch.rand(BATCH, cfg.z_input_size, device=DEVICE, generator=g) \
+        * 2 - 1
+    with quant._true_float32():
+        ref = vid.sample_videos(ts, z, cfg32)
+    q_dyn = quant.quantize_vid_stack(ts.params, ts.state)
+    quality = {}
+    for name, qq in (("static", q), ("dynamic", q_dyn)):
+        out = vid.sample_videos_q(qq, z, cfg)
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              f"int8 {name} sample finite, {tuple(out.shape)}")
+        a, b = denorm_u8(out), denorm_u8(ref)
+        mse_u8 = float(np.mean((a.astype(np.float64) - b) ** 2))
+        x, y = out.double().cpu().numpy(), ref.double().cpu().numpy()
+        quality[name] = dict(
+            psnr_db=10 * math.log10(255.0 ** 2 / max(mse_u8, 1e-12)),
+            mae_u8=float(np.mean(np.abs(a.astype(np.float64) - b))),
+            mae=float(np.mean(np.abs(x - y))),
+            corr=float(np.corrcoef(x.ravel(), y.ravel())[0, 1]))
+        say("serve_int8", quality=name, vs="float32 sampler (TF32 off)",
+            **{k: f"{v:.4f}" for k, v in quality[name].items()})
+    check(quality["static"]["corr"] > 0.99,
+          f"int8 tracks float: {quality['static']}")
+
+    # 5. device time of one request's sample: int8 (static, dynamic),
+    #    float as served (bf16) and float32; each contraction; peak bytes
+    def float32(zz_):
+        with quant._true_float32():
+            return vid.sample_videos(ts, zz_, cfg32)
+
+    times = {
+        "int8_static": lambda zz_: vid.sample_videos_q(q, zz_, cfg),
+        "int8_dynamic": lambda zz_: vid.sample_videos_q(q_dyn, zz_, cfg),
+        "float_bf16": lambda zz_: vid.sample_videos(ts, zz_, cfg),
+        "float32_tf32_off": float32}
+    sample_ms = {k: event_ms(f, [(z,)], warmup=2, reps=10)
+                 for k, f in times.items()}
+    sample_ms["int8_static_again"] = event_ms(times["int8_static"], [(z,)],
+                                              warmup=2, reps=10)
+    say("serve_int8", videos=BATCH,
+        **{f"sample_ms_{k}": f"{v:.3f}" for k, v in sample_ms.items()})
+    if profile:
+        for k in ("int8_static", "float_bf16"):
+            profile_step(f"sample_{k}", lambda: times[k](z),
+                         groups=SAMPLE_GROUPS)
+    rows = _contraction_times(q, z, cfg)
+    for r in rows:
+        say("serve_int8", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                             for k, v in r.items()})
+    peaks = {}
+    for b in (BATCH, INT8_BIG_BATCH):
+        zb = torch.rand(b, cfg.z_input_size, device=DEVICE,
+                        generator=g) * 2 - 1
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        vid.sample_videos_q(q, zb, cfg)
+        torch.cuda.synchronize()
+        peaks[b] = torch.cuda.max_memory_allocated() - base
+    say("serve_int8", sum_acc_ms=f"{sum(r['acc_ms'] for r in rows):.3f}",
+        sum_im2col_ms=f"{sum(r['im2col_ms'] for r in rows):.3f}",
+        sum_int_mm_ms=f"{sum(r['int_mm_ms'] for r in rows):.3f}",
+        sum_int_mm_bound_ms=f"{sum(r['int_mm_bound_ms'] for r in rows):.4f}",
+        im2col_bytes=sum(r["im2col_bytes"] for r in rows),
+        **{f"peak_extra_bytes_{b}_videos": v for b, v in peaks.items()},
+        quantize_seconds=f"{quantize_s:.2f}",
+        finish_seconds=f"{finish_s:.2f}")
+    launches = collections.Counter(read_counts())
+
+    # 6. the deployment workflow through the CLI: quantize-export of the
+    #    workflow phase's train-vid run -> sample-wall --quantized
+    art, wall = (os.path.join(workdir, n) for n in ("int8_art", "int8_wall"))
+    secs, counts, peak = _drive(
+        ["quantize-export", "--checkpoint", vid_ckpt, "--out-dir", art,
+         "--calib-batches", str(INT8_CALIB), "--calib-mode", "mse",
+         "--bias-correct", "--finish-steps", str(INT8_FINISH_STEPS)])
+    launches.update(counts)
+    art_q, _ = quant.load_artifact(art, device=DEVICE)
+    check(all(quant._is_q(art_q[g_][n]) and "as" in art_q[g_][n]
+              for g_, n in quant._VID_LAYER_ORDER), "artifact int8, static")
+    du = lambda d: sum(os.path.getsize(os.path.join(r, f))
+                       for r, _, fs in os.walk(d) for f in fs)
+    float_step = os.path.join(vid_ckpt, f"step_{ckpt.latest_step(vid_ckpt):010d}")
+    float_gen = sum(v.nbytes for k, v in ckpt.load_flat(vid_ckpt).items()
+                    if k.startswith("params/") and "generator" in k)
+    say("serve_int8", run="quantize_export", seconds=f"{secs:.2f}",
+        peak_bytes=peak, artifact_bytes=du(art),
+        float_checkpoint_bytes=du(float_step),
+        float_generator_param_bytes=float_gen)
+    ms, secs, counts, peak = _drive_wall(
+        ["sample-wall", "--checkpoint", art, "--quantized", "--out-dir",
+         wall, "--num-batches", str(WALL_REQUESTS), "--batch-size",
+         str(BATCH), "--seed", str(seed)])
+    launches.update(counts)
+    gifs = [f for f in os.listdir(wall) if f.endswith(".gif")]
+    check(len(gifs) == WALL_REQUESTS * BATCH, f"{len(gifs)} GIFs written")
+    frames = read_gif(os.path.join(wall, gifs[0]))
+    s = cfg.image_gan.output_size
+    check(frames.shape == (cfg.vid_length, s, s, cfg.image_gan.c_dim),
+          f"a quantized wall GIF is {frames.shape}")
+    say("serve_int8", run="sample_wall_quantized", requests=WALL_REQUESTS,
+        videos_per_request=BATCH, gifs=len(gifs), ms_per_request=f"{ms:.1f}",
+        seconds_with_artifact_load=f"{secs:.2f}", peak_bytes=peak)
+
+    # 7. sample-wall --int8 --int8-calib 2 on the float run
+    wall8 = os.path.join(workdir, "int8_wall_calib")
+    ms, secs, counts, peak = _drive_wall(
+        ["sample-wall", "--checkpoint", vid_ckpt, "--int8", "--int8-calib",
+         str(INT8_CALIB), "--out-dir", wall8, "--num-batches", "1",
+         "--batch-size", str(BATCH), "--seed", str(seed)])
+    n8 = len([f for f in os.listdir(wall8) if f.endswith(".gif")])
+    check(n8 == BATCH, f"--int8 wall wrote {n8} GIFs")
+    launches.update(counts)
+    launches = {k["name"]: launches[k["name"]] for k in KERNELS}
+    say("serve_int8", run="sample_wall_int8_calib", gifs=n8,
+        ms_per_request=f"{ms:.1f}", seconds_with_quantize=f"{secs:.2f}",
+        peak_bytes=peak, launches=launches)
+    return launches
+
+
+# kernel groups of a profile table, by substrings of the kernel's name
+TRAIN_GROUPS = {"conv_gemm": ("xmma", "gemm", "conv", "cudnn", "wgrad",
+                              "dgrad", "fprop"),
+                "gather_k1": ("gather_rows_scaled",)}
+# an int8 request: the _int_mm products; the copies (im2col, pads, dtype
+# casts: PyTorch's direct_copy kernels); the max|x| reductions
+SAMPLE_GROUPS = {"gemm": ("xmma", "gemm", "cutlass", "conv", "cudnn"),
+                 "copy_cast": ("copy",), "reduce": ("reduce",)}
+
+
+def profile_step(name, step, groups=TRAIN_GROUPS):
+    """torch.profiler over one call of `step` (one warm training step or
+    request): its wall time, device busy time and idle share, the device
+    time by kernel group and the top kernels."""
     from torch.profiler import ProfilerActivity, profile as prof
 
     with prof(activities=[ProfilerActivity.CPU,
@@ -1343,22 +1649,21 @@ def profile_step(name, step):
             and e.device_type == torch.autograd.DeviceType.CUDA]
     dev_total = sum(self_dev(e) for e in rows) / 1e3
     say("profile", step=name, step_wall_ms=f"{wall:.2f}",
-        device_busy_ms=f"{dev_total:.2f}",
+        device_busy_ms=f"{dev_total:.3f}",
         idle_share=f"{max(0.0, 1 - dev_total / wall):.3f}",
         kernel_launches=sum(e.count for e in rows))
-    groups = {"conv_gemm": ("xmma", "gemm", "conv", "cudnn", "wgrad",
-                            "dgrad", "fprop"),
-              "gather_k1": ("gather_rows_scaled",)}
-    split = {g: 0.0 for g in (*groups, "other")}
+    split = {g: [0.0, 0] for g in (*groups, "other")}
     for e in rows:
         g = next((g for g, keys in groups.items()
                   if any(k in e.key for k in keys)), "other")
-        split[g] += self_dev(e) / 1e3
+        split[g][0] += self_dev(e) / 1e3
+        split[g][1] += e.count
     say("profile", step=name,
-        **{f"{g}_ms": f"{v:.3f}" for g, v in split.items()})
+        **{f"{g}_ms": f"{v[0]:.3f}" for g, v in split.items()},
+        **{f"{g}_launches": v[1] for g, v in split.items()})
     rows.sort(key=lambda e: -self_dev(e))
     for e in rows[:15]:
-        say("profile", step=name, kernel=repr(e.key[:90]), calls=e.count,
+        say("profile", step=name, kernel=repr(e.key[:150]), calls=e.count,
             device_ms=f"{self_dev(e) / 1e3:.3f}")
 
 
@@ -1582,6 +1887,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as workdir:
         measured["gather_rows_scaled"]["workflow_launches"] = \
             phase_workflow(args.seed, workdir, args.profile)
+        phase_serve_int8(ts, cfg, args.seed, workdir,
+                         os.path.join(workdir, "vid", "checkpoints"),
+                         args.profile)
     launches = {"train": phase_train(ts, cfg, tcfg, corpus, args.seed,
                                      args.profile)}
     with tempfile.TemporaryDirectory() as workdir:

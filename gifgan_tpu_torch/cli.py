@@ -1,10 +1,10 @@
 """Command line of the port: `python -m gifgan_tpu_torch <command>`.
 
-The commands `train-dcgan`, `train-vid`, `sample-wall` and `track`, with the
-flags of the JAX package's (gifgan_tpu/cli.py) plus `--device`: each runs
-on the CUDA card unless `--device cpu` is given. Not here yet: the mesh
-flags (`--data-parallel`, `--fsdp*`, `--tensor-parallel`,
-`--seq-parallel`) and the int8 ones (`--int8*`, `--quantized`).
+The commands `train-dcgan`, `train-vid`, `sample-wall`, `quantize-export`
+and `track`, with the flags of the JAX package's (gifgan_tpu/cli.py) plus
+`--device`: each runs on the CUDA card unless `--device cpu` is given. Not
+here yet: the mesh flags (`--data-parallel`, `--fsdp*`,
+`--tensor-parallel`, `--seq-parallel`).
 """
 
 from __future__ import annotations
@@ -203,16 +203,66 @@ def cmd_train_vid(args) -> None:
     loops.train_vid_dcgan(clips_iter, cfg, _train_cfg(args), **kw)
 
 
-def cmd_sample_wall(args) -> None:
-    from gifgan_tpu_torch.serve.sampler import gif_wall, vid_sample_fn
-    from gifgan_tpu_torch.train.vid import load_vid_train_state
+def _vid_sample_fn(args):
+    """(cfg, sample_fn) from a train-vid run's checkpoints: float, or int8
+    with --int8; or, with --quantized, from a quantize-export artifact (no
+    float state loaded)."""
+    from gifgan_tpu_torch.serve.sampler import vid_sample_fn, vid_sample_fn_q
+    from gifgan_tpu_torch.train import vid
 
-    cfg, ts = load_vid_train_state(args.checkpoint, device=args.device)
-    n = gif_wall(vid_sample_fn(ts, cfg), cfg.z_input_size, args.out_dir,
+    if args.quantized:
+        if args.int8 or args.int8_calib or args.int8_float_last:
+            raise SystemExit(
+                "--quantized loads a pre-quantized artifact; --int8/"
+                "--int8-calib/--int8-float-last apply when quantizing from "
+                "a float run — re-export with `quantize-export "
+                "--calib-batches N [--float-last]` to change variants")
+        from gifgan_tpu_torch.ops import quant
+
+        q, cfg = quant.load_artifact(args.checkpoint, device=args.device)
+        return cfg, vid_sample_fn_q(q, cfg)
+    cfg, ts = vid.load_vid_train_state(args.checkpoint, device=args.device)
+    if args.int8:
+        q, _ = vid.quantize_sampler(ts, cfg, calib_batches=args.int8_calib,
+                                    float_last=args.int8_float_last)
+        return cfg, vid_sample_fn_q(q, cfg)
+    return cfg, vid_sample_fn(ts, cfg)
+
+
+def cmd_sample_wall(args) -> None:
+    from gifgan_tpu_torch.serve.sampler import gif_wall
+
+    cfg, sample_fn = _vid_sample_fn(args)
+    n = gif_wall(sample_fn, cfg.z_input_size, args.out_dir,
                  batch_size=args.batch_size,
                  num_batches=None if args.continuous else args.num_batches,
                  continuous=args.continuous, fps=args.fps, seed=args.seed)
     print(f"wrote {n} gifs to {args.out_dir}")
+
+
+def cmd_quantize_export(args) -> None:
+    """Export an int8 serving artifact from a train-vid run (about 4x
+    smaller than the float params; serve it with sample-wall
+    --quantized)."""
+    from gifgan_tpu_torch.ops import quant
+    from gifgan_tpu_torch.train import vid
+
+    cfg, ts = vid.load_vid_train_state(args.checkpoint, device=args.device)
+    q, _ = vid.quantize_sampler(ts, cfg, calib_batches=args.calib_batches,
+                                float_last=args.float_last,
+                                calib_mode=args.calib_mode,
+                                bias_correct=args.bias_correct)
+    if args.finish_steps:
+        q = quant.finish_vid_stack(q, ts.params, ts.state, cfg,
+                                   steps=args.finish_steps)
+    path = quant.save_artifact(args.out_dir, q, cfg)
+    n_bytes = sum(os.path.getsize(os.path.join(root, f))
+                  for root, _, fs in os.walk(args.out_dir) for f in fs)
+    print(f"int8 artifact written to {path} ({n_bytes / 1e6:.1f} MB, "
+          f"calib_batches={args.calib_batches} mode={args.calib_mode}, "
+          f"bias_correct={args.bias_correct}, "
+          f"finish_steps={args.finish_steps}, "
+          f"float_last={args.float_last})")
 
 
 def cmd_track(args) -> None:
@@ -292,8 +342,44 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--continuous", action="store_true")
     p.add_argument("--fps", type=float, default=8.0)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--int8", action="store_true",
+                   help="serve the int8-quantized generator stack "
+                        "(ops/quant.py: int8 tensor-core products)")
+    p.add_argument("--int8-calib", type=int, default=0,
+                   help="with --int8: bake static activation scales from "
+                        "N calibration batches (skips the per-layer "
+                        "dynamic max reduce; inputs beyond the calibrated "
+                        "range clip)")
+    p.add_argument("--int8-float-last", action="store_true",
+                   help="with --int8: keep the tanh output layer in "
+                        "float32 (mixed precision)")
+    p.add_argument("--quantized", action="store_true",
+                   help="--checkpoint points at a quantize-export int8 "
+                        "artifact instead of a train run")
     _add_device_arg(p, "the sampler")
     p.set_defaults(fn=cmd_sample_wall)
+
+    p = sub.add_parser("quantize-export",
+                       help="export an int8 serving artifact from a "
+                            "trained vid run")
+    p.add_argument("--checkpoint", required=True,
+                   help="run_dir/checkpoints of a train-vid run")
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--calib-batches", type=int, default=0,
+                   help="bake static activation scales from N batches")
+    p.add_argument("--calib-mode", default="max", choices=["max", "mse"],
+                   help="static-scale calibration: max-abs or the argmin-"
+                        "MSE fraction sweep")
+    p.add_argument("--bias-correct", action="store_true",
+                   help="per-layer empirical bias correction against the "
+                        "float folded reference")
+    p.add_argument("--finish-steps", type=int, default=0,
+                   help="fake-quant/STE finishing steps before export")
+    p.add_argument("--float-last", action="store_true",
+                   help="keep the tanh output layer in float32 (mixed "
+                        "precision; see sample-wall --int8-float-last)")
+    _add_device_arg(p, "the export")
+    p.set_defaults(fn=cmd_quantize_export)
 
     p = sub.add_parser("track", help="face-track preprocessing over a dir")
     p.add_argument("--input-directory", required=True)

@@ -21,7 +21,9 @@ What changes on the way in (`from_jax_flat`); `to_jax_flat` undoes it:
   leaves `opt_x/0/{count,mu,nu}` become the port's `opt_x/{count,mu,nu}`
   (train/gan.py AdamState).
 
-Every other leaf (biases, BN scale/bias/mean/var, counts, `step`) crosses
+An int8 serving tree's `wq` leaves (ops/quant.py) take the layouts of the
+float `w` they quantize, and keep their int8 dtype. Every other leaf
+(biases, BN scale/bias/mean/var, scales, counts, `step`) crosses
 unchanged. Conversion is a pure permutation, so a round trip is bit-exact.
 
 The detection path has no weights; its model data is the cascade file, and
@@ -53,7 +55,7 @@ _OPT_PORT = re.compile(r"^(opt_[^/]+)/")
 def _layout(key: str, ndim: int):
     """Which weight layout a leaf has, from its layer name and rank."""
     parts = key.split("/")
-    if parts[-1] != "w" or len(parts) < 2:
+    if parts[-1] not in ("w", "wq") or len(parts) < 2:
         return None
     layer = parts[-2]
     if "deconv" in layer and ndim == 4:

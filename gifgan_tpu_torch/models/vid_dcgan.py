@@ -44,16 +44,22 @@ def init_vid_generator(gen: torch.Generator, cfg: VidGANConfig,
     return params, state
 
 
-def vid_generator(params, state, z: Tensor, cfg: VidGANConfig, train: bool,
-                  ) -> Tuple[Tensor, Dict]:
-    """z (B, z_in) -> frame latents (B*T, z_out) float32 in [-1, 1]."""
-    dtype = nn.torch_dtype(cfg.compute_dtype)
+def frame_inputs(z: Tensor, cfg: VidGANConfig) -> Tensor:
+    """z (B, z_in) -> the MLP's rows (B*T, z_in + 1) float32: z repeated
+    over T frames, each with its frame number in linspace(-1, 1, T)."""
     b, t = z.shape[0], cfg.vid_length
     z_copied = z.float()[:, None, :].expand(b, t, cfg.z_input_size)
     frames = torch.linspace(-1.0, 1.0, t, dtype=torch.float32,
                             device=z.device)[None, :, None].expand(b, t, 1)
     h = torch.cat([z_copied, frames], dim=-1)
-    h = h.reshape(b * t, cfg.z_input_size + 1).to(dtype)
+    return h.reshape(b * t, cfg.z_input_size + 1)
+
+
+def vid_generator(params, state, z: Tensor, cfg: VidGANConfig, train: bool,
+                  ) -> Tuple[Tensor, Dict]:
+    """z (B, z_in) -> frame latents (B*T, z_out) float32 in [-1, 1]."""
+    dtype = nn.torch_dtype(cfg.compute_dtype)
+    h = frame_inputs(z, cfg).to(dtype)
     new_state = {}
     for i in range(3):
         h = nn.linear(params[f"lin{i}"], h, dtype=dtype)

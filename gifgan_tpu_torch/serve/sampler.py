@@ -13,20 +13,31 @@ import torch
 from gifgan_tpu_torch.core.config import VidGANConfig
 from gifgan_tpu_torch.data.video import write_gif
 from gifgan_tpu_torch.ops.image import denorm_u8
-from gifgan_tpu_torch.train.vid import VidTrainState, sample_videos
+from gifgan_tpu_torch.train.vid import (VidTrainState, sample_videos,
+                                        sample_videos_q)
+
+
+def _numpy_z(fn, tree, cfg: VidGANConfig, device
+             ) -> Callable[[np.ndarray], torch.Tensor]:
+    def sample_fn(z: np.ndarray) -> torch.Tensor:
+        return fn(tree, torch.as_tensor(np.asarray(z, np.float32),
+                                        device=device), cfg)
+
+    return sample_fn
 
 
 def vid_sample_fn(ts: VidTrainState, cfg: VidGANConfig,
                   ) -> Callable[[np.ndarray], torch.Tensor]:
     """z (B, z_in) numpy -> videos (B, T, s, s, c) in [-1, 1] on the
     state's device (the float sampler of the JAX CLI's sample-wall)."""
-    device = ts.step.device
+    return _numpy_z(sample_videos, ts, cfg, ts.step.device)
 
-    def sample_fn(z: np.ndarray) -> torch.Tensor:
-        return sample_videos(ts, torch.as_tensor(
-            np.asarray(z, np.float32), device=device), cfg)
 
-    return sample_fn
+def vid_sample_fn_q(q, cfg: VidGANConfig,
+                    ) -> Callable[[np.ndarray], torch.Tensor]:
+    """vid_sample_fn over an int8 serving tree (train/vid.py
+    quantize_sampler, or ops/quant.py load_artifact), on its device."""
+    return _numpy_z(sample_videos_q, q, cfg, q["img"]["h0_lin"]["b"].device)
 
 
 def gif_wall(sample_fn: Callable[[np.ndarray], object], z_dim: int,

@@ -31,8 +31,9 @@ from gifgan_tpu_torch import resolve_device
 from gifgan_tpu_torch.core import checkpoint as ckpt
 from gifgan_tpu_torch.core import interop
 from gifgan_tpu_torch.core.config import TrainConfig, VidGANConfig, load_config
+from gifgan_tpu_torch.core.rng import PRNGSequence, uniform_z
 from gifgan_tpu_torch.models import dcgan, vid_dcgan
-from gifgan_tpu_torch.ops import nn
+from gifgan_tpu_torch.ops import nn, quant
 from gifgan_tpu_torch.train.gan import (Adam, AdamState, _differentiable,
                                         _grads, _stack, apply_updates,
                                         make_optimizer, scale_updates)
@@ -284,6 +285,48 @@ def sample_videos(ts: VidTrainState, z: Tensor, cfg: VidGANConfig) -> Tensor:
         frames, _ = dcgan.generator(
             ts.params["img_generator"], ts.state["img_generator"], g_out,
             cfg.image_gan, train=False)
+    s = cfg.image_gan.output_size
+    return frames.reshape(z.shape[0], cfg.vid_length, s, s,
+                          cfg.image_gan.c_dim)
+
+
+# calibration z of quantize_sampler: batches of 64 from the port's stream
+# seed 11 (the JAX package's defaults)
+CALIB_BATCH, CALIB_SEED = 64, 11
+
+
+def quantize_sampler(ts: VidTrainState, cfg: VidGANConfig,
+                     calib_batches: int = 0, float_last: bool = False,
+                     calib_mode: str = "max", bias_correct: bool = False):
+    """int8 serving sampler (gifgan_tpu/train/vid.py quantize_sampler):
+    quantize the frozen generator stack once (ops/quant.py: BN folded,
+    per-channel int8 weights) and return (q tree, sample_videos_q).
+
+    calib_batches > 0 bakes static activation scales from that many
+    uniform-z batches (quant.calibrate_vid_stack, calib_mode "max" or
+    "mse"). bias_correct runs quant.bias_correct_vid_stack over the
+    calibration batches (8 when calib_batches is 0), after the scales. The
+    z batches come from the port's streams (core/rng.py, CALIB_SEED) on
+    the state's device, not from threefry."""
+    q = quant.quantize_vid_stack(ts.params, ts.state, float_last=float_last)
+    n_z = max(calib_batches, 8 if bias_correct else 0)
+    stream = PRNGSequence(CALIB_SEED, ts.step.device)
+    zs = [uniform_z(next(stream), (CALIB_BATCH, cfg.z_input_size))
+          for _ in range(n_z)]
+    if calib_batches > 0:
+        q = quant.calibrate_vid_stack(q, zs[:calib_batches], cfg,
+                                      mode=calib_mode)
+    if bias_correct:
+        q = quant.bias_correct_vid_stack(q, ts.params, ts.state, zs, cfg)
+    return q, sample_videos_q
+
+
+def sample_videos_q(q, z: Tensor, cfg: VidGANConfig) -> Tensor:
+    """int8 counterpart of sample_videos over a quantized serving tree
+    (quantize_sampler, or quant.load_artifact on a serving host):
+    z (B, z_in) -> videos (B, T, s, s, c) float32 in [-1, 1]."""
+    with torch.no_grad():
+        frames, _ = quant.generate_videos_q(q, z, cfg)
     s = cfg.image_gan.output_size
     return frames.reshape(z.shape[0], cfg.vid_length, s, s,
                           cfg.image_gan.c_dim)

@@ -1,12 +1,16 @@
 """The port's training and serving commands (gifgan_tpu_torch/cli.py
-train-dcgan, train-vid, sample-wall), driven in-process with --device cpu
-on tiny flags: the reference's workflow (README "Cookbook"), image GAN ->
-video GAN on top of it -> GIF wall, writes what it should."""
+train-dcgan, train-vid, sample-wall, quantize-export), driven in-process
+with --device cpu on tiny flags: the reference's workflow (README
+"Cookbook"), image GAN -> video GAN on top of it -> GIF wall, and its int8
+deployment (quantize-export -> sample-wall --quantized), write what they
+should."""
 
 import json
 import os
 
 import numpy as np
+import pytest
+import torch
 
 from gifgan_tpu_torch import cli
 from gifgan_tpu_torch.core import checkpoint as ckpt
@@ -17,6 +21,18 @@ IMG_FLAGS = ["--output-size", "32", "--z-dim", "16", "--gf-dim", "8",
              "--df-dim", "8", "--packed-c3", "--device", "cpu"]
 VID_FLAGS = IMG_FLAGS + ["--vid-z-dim", "20", "--vid-length", "4",
                          "--batch-size", "8"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs several worker processes at once; one intra-op thread
+    in each keeps the many small ops of calibration and finishing from
+    oversubscribing the cores (with 8 threads a worker, a finishing run
+    took minutes instead of seconds)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _records(run_dir):
@@ -139,3 +155,128 @@ def test_stills_from_a_directory_equal_the_jax_cli(tmp_path):
     assert got.dtype == np.uint8
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
     np.testing.assert_array_equal(got[0], want[0])     # no resize: exact
+
+
+@pytest.fixture(scope="module")
+def vid_run(tmp_path_factory):
+    """A tiny train-vid run's checkpoints dir (2 steps)."""
+    run = str(tmp_path_factory.mktemp("q") / "vid")
+    assert cli.main(["train-vid", "--run-dir", run, "--dataset-size", "16",
+                     "--device-corpus", "--steps-limit", "2",
+                     "--sample-every", "0", "--checkpoint-every", "2"]
+                    + VID_FLAGS) == 0
+    return os.path.join(run, "checkpoints")
+
+
+def test_quantize_export_then_sample_wall_quantized(vid_run, tmp_path):
+    """train-vid -> quantize-export with every recovery rung (mse
+    calibration, bias correction, 2 finishing steps, float last layer) ->
+    sample-wall --quantized: the artifact is the int8 tree with its static
+    scales and a float32 h4, smaller than the float generator weights, and
+    the wall writes its GIFs."""
+    from gifgan_tpu_torch.ops import quant
+
+    art, wall = str(tmp_path / "art"), str(tmp_path / "wall")
+    assert cli.main(["quantize-export", "--checkpoint", vid_run,
+                     "--out-dir", art, "--calib-batches", "2",
+                     "--calib-mode", "mse", "--bias-correct",
+                     "--finish-steps", "2", "--float-last",
+                     "--device", "cpu"]) == 0
+    q, cfg = quant.load_artifact(art, device="cpu")
+    assert cfg.vid_length == 4 and cfg.image_gan.output_size == 32
+    assert not quant._is_q(q["img"]["h4_deconv"])
+    for g, n in quant._VID_LAYER_ORDER[:-1]:
+        assert q[g][n]["wq"].dtype == torch.int8 and "as" in q[g][n], (g, n)
+    flat = ckpt.load_flat(vid_run)
+    float_bytes = sum(v.nbytes for k, v in flat.items()
+                      if k.startswith("params/") and "generator" in k)
+    art_bytes = sum(v.nbytes for v in ckpt.load_flat(art).values())
+    assert art_bytes < 0.5 * float_bytes, (art_bytes, float_bytes)
+
+    assert cli.main(["sample-wall", "--checkpoint", art, "--quantized",
+                     "--out-dir", wall, "--num-batches", "2",
+                     "--batch-size", "3", "--device", "cpu"]) == 0
+    assert sorted(os.listdir(wall)) == sorted(f"{i}.gif" for i in range(6))
+    assert native_gif.decode_gif(os.path.join(wall, "5.gif")).shape == (
+        4, 32, 32, 3)
+
+
+def test_sample_wall_int8_from_a_float_run(vid_run, tmp_path):
+    """sample-wall --int8 --int8-calib 1 quantizes the run's generator
+    stack on load and serves it."""
+    wall = str(tmp_path / "wall")
+    assert cli.main(["sample-wall", "--checkpoint", vid_run, "--int8",
+                     "--int8-calib", "1", "--out-dir", wall,
+                     "--num-batches", "1", "--batch-size", "3",
+                     "--device", "cpu"]) == 0
+    assert sorted(os.listdir(wall)) == ["0.gif", "1.gif", "2.gif"]
+
+
+@pytest.mark.parametrize("flag", [["--int8"], ["--int8-calib", "1"],
+                                  ["--int8-float-last"]])
+def test_quantized_refuses_the_int8_flags_as_jax_does(flag):
+    from gifgan_tpu import cli as jcli
+
+    argv = ["sample-wall", "--checkpoint", "/none", "--out-dir", "/none",
+            "--quantized"] + flag
+    with pytest.raises(SystemExit) as want:
+        jcli.main(argv)
+    with pytest.raises(SystemExit) as got:
+        cli.main(argv + ["--device", "cpu"])
+    assert "--quantized loads a pre-quantized artifact" in str(got.value)
+    assert str(got.value) == str(want.value)
+
+
+def test_jax_artifact_serves_through_the_port(tmp_path):
+    """An artifact from the JAX package's quantize_sampler + save_artifact
+    (std-0.2 weights, static scales, float last layer) serves through the
+    port's sample-wall --quantized: its GIFs are written, and its sampler
+    equals the JAX package's on the same z within 1e-4 (one int8 tree; the
+    float32 h4 sums in another order)."""
+    import jax.numpy as jnp
+
+    from gifgan_tpu.core.config import (DCGANConfig as JDCGANConfig,
+                                        VidGANConfig as JVidGANConfig)
+    from gifgan_tpu.models import vid_dcgan as jvid_dcgan
+    from gifgan_tpu.ops import quant as jquant
+    from gifgan_tpu.train import vid as jvid
+    from gifgan_tpu_torch.core import interop
+    from gifgan_tpu_torch.core.config import (DCGANConfig, TrainConfig,
+                                              VidGANConfig)
+    from gifgan_tpu_torch.core.tree import unflatten
+    from gifgan_tpu_torch.train import vid as tvid
+
+    img = dict(output_size=32, c_dim=3, z_dim=8, gf_dim=8, df_dim=8)
+    kw = dict(z_input_size=12, z_output_size=8, vid_length=2, hidden_dim=16,
+              d_filters=8)
+    jcfg = JVidGANConfig(image_gan=JDCGANConfig(**img), **kw)
+    # the JAX nets from numpy (std-0.2 weights), as a JAX state holds them
+    rng = np.random.default_rng(0)
+    flat = interop.to_jax_flat(tvid.init_train_state(
+        torch.Generator().manual_seed(0),
+        VidGANConfig(image_gan=DCGANConfig(**img), **kw), TrainConfig(),
+        device="cpu"))
+    tree = unflatten({k: jnp.asarray(0.2 * rng.standard_normal(v.shape),
+                                     v.dtype) if k.endswith("/w") else
+                      jnp.asarray(v) for k, v in flat.items()})
+    ts = jvid.VidTrainState(jvid_dcgan.VidGANParams(**tree["params"]),
+                            jvid_dcgan.VidGANState(**tree["state"]),
+                            None, None, None)
+    q, _ = jvid.quantize_sampler(ts, jcfg, calib_batches=1,
+                                 calib_batch_size=4, float_last=True)
+    art, wall = str(tmp_path / "art"), str(tmp_path / "wall")
+    jquant.save_artifact(art, q, jcfg)
+
+    assert cli.main(["sample-wall", "--checkpoint", art, "--quantized",
+                     "--out-dir", wall, "--num-batches", "1",
+                     "--batch-size", "4", "--device", "cpu"]) == 0
+    assert sorted(os.listdir(wall)) == [f"{i}.gif" for i in range(4)]
+    args = cli.build_parser().parse_args(
+        ["sample-wall", "--checkpoint", art, "--quantized", "--out-dir",
+         wall, "--device", "cpu"])
+    cfg, sample_fn = cli._vid_sample_fn(args)
+    z = rng.uniform(-1, 1, (4, 12)).astype(np.float32)
+    want = np.asarray(jvid.sample_videos_q(q, jnp.asarray(z), jcfg))
+    assert np.abs(want).max() > 0.05
+    np.testing.assert_allclose(sample_fn(z).numpy(), want, rtol=0,
+                               atol=1e-4)

@@ -32,7 +32,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 40, out.stdout
+    assert int(n) >= 46, out.stdout
     assert bad == "[]", bad
 
 
@@ -44,6 +44,7 @@ def _entry_points():
     from gifgan_tpu_torch.data import loader, video
     from gifgan_tpu_torch.data.device import DeviceCorpus
     from gifgan_tpu_torch.kernels import flow
+    from gifgan_tpu_torch.ops import quant
     from gifgan_tpu_torch import cli
     from gifgan_tpu_torch.track import detect, haar_device, pipeline
     from gifgan_tpu_torch.track.boxes import Detection
@@ -109,6 +110,16 @@ def _entry_points():
             ["train-vid", "--run-dir", "/none", "--device-corpus"]),
         "cli_sample_wall": lambda: cli.main(
             ["sample-wall", "--checkpoint", "/none", "--out-dir", "/none"]),
+        "load_artifact": lambda: quant.load_artifact("/none"),
+        "cli_sample_wall_quantized": lambda: cli.main(
+            ["sample-wall", "--checkpoint", "/none", "--out-dir", "/none",
+             "--quantized"]),
+        "cli_sample_wall_int8": lambda: cli.main(
+            ["sample-wall", "--checkpoint", "/none", "--out-dir", "/none",
+             "--int8", "--int8-calib", "2"]),
+        "cli_quantize_export": lambda: cli.main(
+            ["quantize-export", "--checkpoint", "/none", "--out-dir",
+             "/none", "--calib-batches", "2", "--bias-correct"]),
     }
 
 
