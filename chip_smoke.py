@@ -13,7 +13,8 @@ Phases, one report line each, any failed check raising:
             version, and timed beside it and, as an aside (a copy only, no
             widen or scale), beside torch.index_select; then the same at
             train-dcgan's shape (case=stills: 64 rows of 64x64x3, the
-            corpus's frames as stills);
+            corpus's frames as stills), with the launch floor (a
+            one-element add_ in a graph of as many calls) as an aside;
 5. K2       the resize + normalize kernel at the feed's shape ((1024, 256,
             256, 3) uint8 -> 64x64, scaled), on a float32 non-square case,
             on unaligned rows (W*C = 363, and the feed's shape one byte
@@ -70,6 +71,19 @@ Phases, one report line each, any failed check raising:
             sample-wall --quantized (2 requests of 64 GIFs, the artifact's
             bytes against the float checkpoint's) and sample-wall --int8
             --int8-calib 2 through the CLI;
+9d. invert  latent inversion (gifgan_tpu_torch/invert/) on the workflow's
+            train-dcgan run at the flagship width: one image problem
+            (8 targets the run's generator drew, float32, TF32 off) card
+            vs CPU, its loss, dL/dz and 20 Adam steps across a rate
+            decay; then through the CLI make-paths, z-extract (8 16-frame
+            GIF clips the generator drew, one batch, 50 + 16 x 10 steps,
+            comparison GIFs), derive-paths, invert (64 generator PNGs,
+            batch 64, 200 steps, progress sections 0,1 50,10, a make-paths,
+            a derived and an extracted path: the last loss under 0.9 x the
+            first) and visualize --option 4; 10 steps of the nested
+            variant on the flagship VidGAN (8 videos x 16 frames); ms per
+            inversion step over a 50-step chunk by CUDA events, seconds
+            per z-extract clip;
 10. train   train_chunk_ids, K = 4 steps of B = 64 clips at the flagship
             width, frames gathered by K1 from the resident corpus;
 11. prep    2 synthetic 48-frame 360x480 source GIFs with a drifting,
@@ -92,13 +106,14 @@ Phases, one report line each, any failed check raising:
             train_chunk of K = 2 steps at the flagship width on the batches.
 
 The launch counts are zeroed just before each of serve, the three
-workflow commands, serve_int8 (no kernel of the four is on its path, and
-it reports their counts), train, prep, track and feed and read just
-after. Then a `kernels` JSON line, the nvidia-smi
+workflow commands, serve_int8 and invert (no kernel of the four is on
+their paths, and they report their counts), train, prep, track and feed
+and read just after. Then a `kernels` JSON line, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Without CUDA it
 exits 2 and prints no result. --profile adds a torch.profiler table of one
-video training step (train), one image-DCGAN step (workflow) and one
-request's int8 and bf16 float sample (serve_int8), and cProfile's table of
+video training step (train), one image-DCGAN step (workflow), one
+request's int8 and bf16 float sample (serve_int8) and one inversion step
+(invert), and cProfile's table of
 the track phase's dispatcher thread.
 """
 
@@ -126,9 +141,9 @@ import torch.nn.functional as F
 from gifgan_tpu_torch import cli
 from gifgan_tpu_torch.core import checkpoint as ckpt
 from gifgan_tpu_torch.core import interop
-from gifgan_tpu_torch.core.config import (DCGANConfig, TrackConfig,
-                                          TrainConfig, VidGANConfig,
-                                          load_config)
+from gifgan_tpu_torch.core.config import (DCGANConfig, InvertConfig,
+                                          TrackConfig, TrainConfig,
+                                          VidGANConfig, load_config)
 from gifgan_tpu_torch.data.device import DeviceCorpus
 from gifgan_tpu_torch.data.loader import clip_batches_from_files
 from gifgan_tpu_torch.data.synthetic import synthetic_clips
@@ -144,10 +159,12 @@ from gifgan_tpu_torch.kernels.haar_stages import (haar_stages,
 from gifgan_tpu_torch.kernels.resize import (interp_taps, launch_plan,
                                              resize_normalize,
                                              resize_normalize_plain)
-from gifgan_tpu_torch.models import vid_dcgan
+from gifgan_tpu_torch import invert as inv_api
+from gifgan_tpu_torch.invert import optimize as inv_opt
+from gifgan_tpu_torch.models import dcgan, vid_dcgan
 from gifgan_tpu_torch.models.dcgan import to_device
 from gifgan_tpu_torch.ops import quant
-from gifgan_tpu_torch.ops.image import denorm_u8
+from gifgan_tpu_torch.ops.image import denorm_u8, write_png
 from gifgan_tpu_torch.serve import sampler
 from gifgan_tpu_torch.serve.sampler import gif_wall, vid_sample_fn
 from gifgan_tpu_torch.track import pipeline as tpipe
@@ -198,6 +215,15 @@ WF_MODEL_FLAGS = ["--output-size", "64", "--z-dim", "100", "--gf-dim", "64",
                   "--packed-c3"]
 # serve_int8: calibration batches, finishing steps, the card-vs-CPU batch
 INT8_CALIB, INT8_FINISH_STEPS, INT8_CHECK_VIDEOS, INT8_BIG_BATCH = 2, 20, 4, 256
+# invert: the card-vs-CPU problem's batch and Adam steps; the invert
+# command's steps; z-extract's clips (one batch); the nested variant's
+# steps; the timed chunk
+INV_CHECK_BATCH, INV_CHECK_STEPS, INV_STEPS = 8, 20, 200
+# the check's rate: at the commands' 0.05 Adam's sign-like steps on the
+# components with near-zero gradients part z by a few lr between two
+# reduction orders on one device, at 0.01 by a fraction of lr
+INV_CHECK_LR = 0.01
+INV_CLIPS, INV_NESTED_STEPS, INV_TIMED_STEPS = 8, 10, 50
 # the H100 SXM data sheet's dense int8 tensor-core rate
 INT8_OPS = 1979e12
 DEVICE = "cuda"
@@ -401,6 +427,10 @@ def phase_k1_stills(corpus, seed):
     ms = graph_ms(gather_rows_scaled, sets)
     plain_ms = graph_ms(gather_rows_scaled_plain, sets)
     ms2 = graph_ms(gather_rows_scaled, sets)
+    # an aside: the launch floor, a one-element in-place add_ in a graph of
+    # as many calls
+    one = torch.zeros(1, device="cuda")
+    floor_ms = graph_ms(lambda t: t.add_(1.0), [(one,)] * len(sets))
     unique = int(torch.unique(idx.clamp(0, n - 1)).numel())
     nbytes = unique * d + BATCH * d * 4 + BATCH * 8
     bound_ms = max(nbytes / HBM_BYTES_PER_S,
@@ -410,9 +440,11 @@ def phase_k1_stills(corpus, seed):
         tolerance=2.0 ** -23, unique_rows=unique,
         kernel_ms=f"{ms:.5f},{ms2:.5f}", plain_ms=f"{plain_ms:.5f}",
         bound_ms=f"{bound_ms:.5f}", bound_bytes=nbytes,
-        bound_share=f"{bound_ms / kernel_ms:.3f}")
+        bound_share=f"{bound_ms / kernel_ms:.3f}",
+        aside_launch_floor_ms=f"{floor_ms:.5f}")
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes"}
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "launch_floor_ms": floor_ms}
 
 
 def k2_needed_bytes(n, h, w, c, oh, ow, element_size):
@@ -1617,6 +1649,215 @@ def phase_serve_int8(ts, cfg, seed, workdir, vid_ckpt, profile=False):
     return launches
 
 
+def _invert_check(params, state, cfg, targets, z0):
+    """Card vs CPU on one image inversion problem at the flagship width,
+    float32 with TF32 off: the loss and dL/dz at z0, then INV_CHECK_STEPS
+    Adam steps with a rate decay inside them."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    icfg = InvertConfig(steps=INV_CHECK_STEPS, learning_rate=INV_CHECK_LR,
+                        lr_decay_every=INV_CHECK_STEPS // 2,
+                        lr_decay_factor=0.5, pixel_l1=1.0, activation_l1=0.3,
+                        activation_l2=0.2, generator_loss=0.05,
+                        batch_size=targets.shape[0])
+    out = {}
+    for dev in ("cpu", DEVICE):
+        prob = inv_opt.image_problem(params, state, targets, cfg32, icfg,
+                                     device=dev)
+        z = torch.as_tensor(z0, device=dev).requires_grad_(True)
+        loss, _ = prob.loss_fn(z)
+        (grad,) = torch.autograd.grad(loss, z)
+        zz, losses, _ = inv_opt.invert(prob, icfg, z0=torch.as_tensor(
+            z0, device=dev))
+        out[dev] = (float(loss.detach()), grad.cpu().numpy(), losses,
+                    zz.cpu().numpy())
+    torch.backends.cudnn.allow_tf32 = tf32[0]
+    torch.backends.cuda.matmul.allow_tf32 = tf32[1]
+    (l_cpu, g_cpu, h_cpu, z_cpu), (l_gpu, g_gpu, h_gpu, z_gpu) = (
+        out["cpu"], out[DEVICE])
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_err = float(np.abs(g_gpu - g_cpu).max() / np.abs(g_cpu).max())
+    hist_err = float(np.abs(h_gpu - h_cpu).max() / np.abs(h_cpu).max())
+    z_diff = np.abs(z_gpu - z_cpu)
+    z_err = float(z_diff.max()) / icfg.learning_rate
+    check(np.abs(g_cpu).min() > 1e-6 * np.abs(g_cpu).max(),
+          f"dL/dz far above rounding: min {np.abs(g_cpu).min()}")
+    check(loss_err < 1e-4, f"inversion loss card vs CPU rel err {loss_err}")
+    check(grad_err < 1e-3, f"dL/dz card vs CPU: {grad_err} of max")
+    # Adam moves each z component by ~lr whatever its gradient's size, so a
+    # component whose gradient sits near zero takes the sign of its step
+    # from rounding, and may part the two by ~lr an update (as
+    # phase_check's weights); the losses must agree
+    check(hist_err < 1e-3 and z_err <= 3.0,
+          f"{INV_CHECK_STEPS} Adam steps card vs CPU: losses {hist_err} "
+          f"of max, z {z_err} x lr")
+    say("invert", check="card vs CPU, float32 TF32 off",
+        batch=targets.shape[0], steps=INV_CHECK_STEPS,
+        decay_at=icfg.lr_decay_every, loss_rel_err=f"{loss_err:.3g}",
+        loss_tol="1e-4", grad_err_of_max=f"{grad_err:.3g}", grad_tol="1e-3",
+        grad_min_over_max=f"{np.abs(g_cpu).min() / np.abs(g_cpu).max():.3g}",
+        losses_err_of_max=f"{hist_err:.3g}", losses_tol="1e-3",
+        z_max_abs_err_over_lr=f"{z_err:.3g}", z_tol="3 x lr",
+        z_share_within_0p001=f"{float((z_diff <= 1e-3).mean()):.4f}",
+        loss_first=f"{h_gpu[0]:.5f}", loss_last=f"{h_gpu[-1]:.5f}")
+
+
+def _write_clips(params, state, cfg, clip_dir, seed):
+    """INV_CLIPS GIF clips of 16 frames drawn by the image generator along
+    straight z paths."""
+    os.makedirs(clip_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(INV_CLIPS):
+        z0 = rng.uniform(-0.8, 0.8, cfg.z_dim)
+        step = rng.uniform(-0.02, 0.02, cfg.z_dim)
+        zs = (z0 + np.arange(CLIP_LEN)[:, None] * step).astype(np.float32)
+        frames = dcgan.sample(params, state,
+                              torch.as_tensor(zs, device=DEVICE), cfg)
+        write_gif(os.path.join(clip_dir, f"clip{i:02d}.gif"),
+                  denorm_u8(frames))
+
+
+def phase_invert(seed, workdir, img_ckpt, vid_ts, vid_cfg, smi,
+                 profile=False):
+    """Latent inversion (gifgan_tpu_torch/invert/) on the workflow phase's
+    train-dcgan run at the flagship width: card vs CPU; make-paths ->
+    z-extract -> derive-paths -> invert --input-paths -> visualize through
+    the CLI; the nested variant on the flagship VidGAN; step times."""
+    reset_counts()
+    cfg, params, state = cli._load_dcgan_from_run(img_ckpt, DEVICE)
+    rng = np.random.default_rng(seed + 40)
+    z_true = rng.uniform(-1, 1, (BATCH, cfg.z_dim)).astype(np.float32)
+    images = dcgan.sample(params, state, torch.as_tensor(
+        z_true, device=DEVICE), cfg)
+    side = cfg.output_size
+    check(images.shape == (BATCH, side, side, cfg.c_dim)
+          and bool(torch.isfinite(images).all()), "generator targets")
+
+    # 1. card vs CPU (float32), on 8 of the targets
+    z0 = rng.uniform(-1, 1, (INV_CHECK_BATCH, cfg.z_dim)).astype(np.float32)
+    _invert_check(params, state, cfg, images[:INV_CHECK_BATCH], z0)
+
+    # 2. the CLI: make-paths, z-extract -> derive-paths, invert
+    tgt_dir, clip_dir = (os.path.join(workdir, n)
+                         for n in ("inv_targets", "inv_clips"))
+    os.makedirs(tgt_dir)
+    for i, im in enumerate(denorm_u8(images)):
+        write_png(os.path.join(tgt_dir, f"{i:02d}.png"), im)
+    _write_clips(params, state, cfg, clip_dir, seed + 41)
+    d = lambda n: os.path.join(workdir, n)
+    check(cli.main(["make-paths", "--out-dir", d("inv_paths"), "--z-dim",
+                    str(cfg.z_dim)]) == 0, "make-paths")
+    secs, counts, peak = _drive(
+        ["z-extract", "--checkpoint", img_ckpt, "--input-directory",
+         clip_dir, "--output-z-folder", d("inv_zs"), "--batch-size",
+         str(INV_CLIPS), "--num-initial-steps", "50",
+         "--num-steps-per-frame", "10", "--write-comparisons"])
+    launches = collections.Counter(counts)
+    trajs = sorted(f for f in os.listdir(d("inv_zs")) if f.endswith(".npy")
+                   and not f.endswith("_comparison.npy"))
+    check(len(trajs) == INV_CLIPS and all(
+        np.load(os.path.join(d("inv_zs"), f)).shape == (CLIP_LEN, cfg.z_dim)
+        for f in trajs), f"z-extract wrote {trajs}")
+    comps = [f for f in os.listdir(d("inv_zs")) if f.endswith(".gif")]
+    check(len(comps) == INV_CLIPS, f"{len(comps)} comparison GIFs")
+    check(read_gif(os.path.join(d("inv_zs"), comps[0])).shape
+          == (CLIP_LEN, side, 2 * side, 3), "comparison GIF target | recon")
+    say("invert", run="z_extract", clips=INV_CLIPS, frames=CLIP_LEN,
+        steps=f"50+{CLIP_LEN}x10", seconds=f"{secs:.2f}",
+        seconds_per_clip=f"{secs / INV_CLIPS:.3f}", peak_bytes=peak,
+        card=repr(smi))
+    check(cli.main(["derive-paths", "--traj-dir", d("inv_zs"), "--out-dir",
+                    d("inv_dpaths")]) == 0, "derive-paths")
+    derived = sorted(os.listdir(d("inv_dpaths")))
+    check(len(derived) == 4, f"derive-paths wrote {derived}")
+
+    runs = []
+    real = inv_api.invert_images
+
+    def invert_images(*a, **kw):
+        out = real(*a, **kw)
+        runs.append(out[1])
+        return out
+
+    inv_api.invert_images = invert_images
+    try:
+        secs, counts, peak = _drive(
+            ["invert", "--checkpoint", img_ckpt, "--input-images",
+             *sorted(os.path.join(tgt_dir, f) for f in os.listdir(tgt_dir)),
+             "--input-paths", d("inv_paths/smile.txt"),
+             d("inv_dpaths/" + derived[0]),
+             os.path.join(d("inv_zs"), trajs[0]),
+             "--sample-dir", d("inv_out"), "--batch-size", str(BATCH),
+             "--num-steps", str(INV_STEPS), "--progress-vid-sections",
+             "0,1", "50,10"])
+    finally:
+        inv_api.invert_images = real
+    launches.update(counts)
+    losses = runs[0]
+    check(losses.shape == (INV_STEPS,) and np.isfinite(losses).all(),
+          "invert losses finite")
+    check(losses[-1] < 0.9 * losses[0],
+          f"invert: last loss {losses[-1]} under 0.9 x first {losses[0]}")
+    z = np.load(d("inv_out/z.npy"))
+    check(z.shape == (BATCH, cfg.z_dim), f"z.npy is {z.shape}")
+    for f in ("final.png", "path_00.gif", "path_01.gif", "path_02.gif"):
+        check(os.path.exists(d("inv_out/" + f)), f"invert wrote {f}")
+    say("invert", run="invert_cli", batch=BATCH, steps=INV_STEPS,
+        loss_first=f"{losses[0]:.5f}", loss_last=f"{losses[-1]:.5f}",
+        ratio=f"{losses[-1] / losses[0]:.4f}", seconds=f"{secs:.2f}",
+        peak_bytes=peak, input_paths="make-paths, derive-paths, z-extract")
+    secs, counts, _ = _drive(["visualize", "--checkpoint", img_ckpt,
+                              "--out-dir", d("inv_vis"), "--option", "4",
+                              "--num-dims", "8"])
+    launches.update(counts)
+    check(len(os.listdir(d("inv_vis"))) == 9, "visualize: 8 GIFs + merged")
+    say("invert", run="visualize", option=4, dims=8, seconds=f"{secs:.2f}")
+
+    # 3. the nested variant on the flagship VidGAN (random weights)
+    ncfg = InvertConfig(steps=INV_NESTED_STEPS, batch_size=INV_CLIPS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    nz, nl, _ = inv_api.invert_nested_first_frame(
+        vid_ts.params, vid_ts.state, images[:INV_CLIPS], vid_cfg, ncfg,
+        seed=seed, device=DEVICE)
+    torch.cuda.synchronize()
+    check(nz.shape == (INV_CLIPS, vid_cfg.z_input_size)
+          and np.isfinite(nl).all() and bool(torch.isfinite(nz).all()),
+          f"nested inversion finite: {nl}")
+    say("invert", run="nested_first_frame", videos=INV_CLIPS,
+        frames=vid_cfg.vid_length, steps=INV_NESTED_STEPS,
+        ms_per_step=f"{(time.perf_counter() - t) * 1e3 / INV_NESTED_STEPS:.2f}",
+        loss_first=f"{nl[0]:.5f}", loss_last=f"{nl[-1]:.5f}")
+
+    # 4. ms per inversion step: the invert command's problem (batch 64,
+    #    the run's dtype), one 50-step chunk between CUDA events
+    icfg = InvertConfig(activation_l1=0.0, pixel_l1=0.0, activation_l2=1.0,
+                        batch_size=BATCH)
+    prob = inv_opt.image_problem(params, state, images, cfg, icfg,
+                                 device=DEVICE)
+    zt = inv_opt.initial_z(prob.z_shape, seed, prob.device)
+    st = gan.Adam(icfg.learning_rate).init({"z": zt})
+    inv_opt._run_chunk(prob, zt, st, icfg, 0, 5)             # warm
+    ms = event_ms(lambda: inv_opt._run_chunk(prob, zt, st, icfg, 0,
+                                             INV_TIMED_STEPS),
+                  [()], warmup=1, reps=1) / INV_TIMED_STEPS
+    ms2 = event_ms(lambda: inv_opt._run_chunk(prob, zt, st, icfg, 0,
+                                              INV_TIMED_STEPS),
+                   [()], warmup=0, reps=1) / INV_TIMED_STEPS
+    launches.update(read_counts())
+    launches = {k["name"]: launches[k["name"]] for k in KERNELS}
+    say("invert", timing="image problem", batch=BATCH, dtype=cfg.compute_dtype,
+        steps_per_chunk=INV_TIMED_STEPS, ms_per_step=f"{ms:.3f},{ms2:.3f}",
+        card=repr(smi), launches=launches)
+    if profile:
+        profile_step("invert_step", lambda: inv_opt._run_chunk(
+            prob, zt, st, icfg, 0, 1))
+    return launches
+
+
 # kernel groups of a profile table, by substrings of the kernel's name
 TRAIN_GROUPS = {"conv_gemm": ("xmma", "gemm", "conv", "cudnn", "wgrad",
                               "dgrad", "fprop"),
@@ -1890,6 +2131,9 @@ def main(argv=None) -> int:
         phase_serve_int8(ts, cfg, args.seed, workdir,
                          os.path.join(workdir, "vid", "checkpoints"),
                          args.profile)
+        phase_invert(args.seed, workdir,
+                     os.path.join(workdir, "img", "checkpoints"), ts, cfg,
+                     smi, args.profile)
     launches = {"train": phase_train(ts, cfg, tcfg, corpus, args.seed,
                                      args.profile)}
     with tempfile.TemporaryDirectory() as workdir:

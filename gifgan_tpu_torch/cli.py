@@ -1,10 +1,13 @@
 """Command line of the port: `python -m gifgan_tpu_torch <command>`.
 
-The commands `train-dcgan`, `train-vid`, `sample-wall`, `quantize-export`
-and `track`, with the flags of the JAX package's (gifgan_tpu/cli.py) plus
-`--device`: each runs on the CUDA card unless `--device cpu` is given. Not
-here yet: the mesh flags (`--data-parallel`, `--fsdp*`,
-`--tensor-parallel`, `--seq-parallel`).
+The commands `train-dcgan`, `train-vid`, `sample-wall`, `quantize-export`,
+`track`, `invert`, `z-extract`, `make-paths`, `derive-paths` and
+`visualize`, with the flags of the JAX package's (gifgan_tpu/cli.py) plus
+`--device`: each runs on the CUDA card unless `--device cpu` is given
+(`make-paths` and `derive-paths` are numpy only). Not here yet: the mesh
+flags (`--data-parallel`, `--fsdp*`, `--tensor-parallel`,
+`--seq-parallel`). `invert` and `z-extract` write GIFs where the JAX
+package writes mp4s, and `invert` reads its images with cv2.
 """
 
 from __future__ import annotations
@@ -284,6 +287,193 @@ def cmd_track(args) -> None:
     print(stats.render_text())
 
 
+def _load_dcgan_from_run(checkpoint_dir, device=None):
+    """(cfg, params, state) from an image-GAN run's checkpoints dir, written
+    by either package."""
+    import torch
+
+    from gifgan_tpu_torch import resolve_device
+    from gifgan_tpu_torch.core import checkpoint as ckpt
+    from gifgan_tpu_torch.core.config import load_config
+    from gifgan_tpu_torch.train import gan
+
+    device = resolve_device(device)
+    doc = load_config(os.path.join(checkpoint_dir, os.pardir, "params.json"))
+    cfg, tcfg = doc["model"], doc["train"]
+    ts = gan.init_train_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                              device=device)
+    ts = ckpt.restore(checkpoint_dir, ts)
+    return cfg, ts.params, ts.state
+
+
+def _read_image(path: str, cfg) -> np.ndarray:
+    """An image file -> (s, s, c) float32 in [-1, 1]: read by cv2 (BGR,
+    alpha dropped) and turned to RGB, its first c_dim channels, resized
+    where it is another size by ops/image.py resize_bilinear (the JAX
+    package's jax.image.resize "linear") and clipped to [0, 255]."""
+    import cv2
+    import torch
+
+    from gifgan_tpu_torch.ops.image import resize_bilinear
+
+    im = cv2.imread(path, cv2.IMREAD_COLOR)
+    if im is None:
+        raise SystemExit(f"cannot read image {path}")
+    im = cv2.cvtColor(im, cv2.COLOR_BGR2RGB)[..., :cfg.c_dim]
+    if im.shape[:2] != (cfg.output_size,) * 2:
+        im = np.clip(resize_bilinear(torch.from_numpy(im), cfg.output_size,
+                                     cfg.output_size).numpy(), 0, 255)
+    return im.astype(np.float32) / 127.5 - 1.0
+
+
+def cmd_invert(args) -> None:
+    """Image inversion + expression-path animation (the reference's
+    discriminator_activation_optimizer workflow)."""
+    from gifgan_tpu_torch.core.config import InvertConfig
+    from gifgan_tpu_torch.data.video import write_gif
+    from gifgan_tpu_torch.invert import apply_latent_path, invert_images
+    from gifgan_tpu_torch.ops.image import denorm_u8, write_png
+    from gifgan_tpu_torch.serve.explorer import parse_z_text
+
+    cfg, params, state = _load_dcgan_from_run(args.checkpoint, args.device)
+    targets = [_read_image(p, cfg) for p in args.input_images]
+    reps = max(1, args.batch_size // max(1, len(targets)))
+    batch = np.stack((targets * reps)[:args.batch_size])
+
+    icfg = InvertConfig(steps=args.num_steps, learning_rate=args.learning_rate,
+                        lr_decay_every=args.lr_decay_frequency or 10**9,
+                        lr_decay_factor=args.lr_decay_amount,
+                        pixel_l1=args.pixel_l1_weight,
+                        pixel_l2=args.pixel_l2_weight,
+                        activation_l1=args.activations_l1_weight,
+                        activation_l2=args.activations_l2_weight,
+                        generator_loss=args.generator_loss_weight,
+                        use_train_mode_activations=(
+                            args.discriminator_mode == "train"),
+                        batch_size=len(batch))
+    os.makedirs(args.sample_dir, exist_ok=True)
+    sections = ([tuple(int(v) for v in s.split(","))
+                 for s in args.progress_vid_sections]
+                if args.progress_vid_sections else None)
+    z, losses, frames = invert_images(params, state, batch, cfg, icfg,
+                                      progress_sections=sections,
+                                      device=args.device)
+    np.save(os.path.join(args.sample_dir, "z.npy"), z.cpu().numpy())
+    if frames:
+        write_png(os.path.join(args.sample_dir, "final.png"),
+                  denorm_u8(frames[-1][0]))
+    print(f"final loss: {losses[-1]:.6f}")
+
+    for i, p in enumerate(args.input_paths):
+        if p.endswith(".npy"):
+            path_zs = np.load(p)
+        else:
+            with open(p) as f:
+                path_zs = parse_z_text(f.read())
+        vid = apply_latent_path(params, state, z[:1], path_zs, cfg,
+                                device=args.device)[:, 0]
+        write_gif(os.path.join(args.sample_dir, f"path_{i:02d}.gif"),
+                  denorm_u8(vid))
+    print("wrote", args.sample_dir)
+
+
+def cmd_z_extract(args) -> None:
+    """Batch dataset z-trajectory extraction (the reference's
+    z_space_finder)."""
+    from gifgan_tpu_torch.core.config import InvertConfig
+    from gifgan_tpu_torch.data.video import decode_clip
+    from gifgan_tpu_torch.invert.z_finder import extract_z_trajectories
+
+    cfg, params, state = _load_dcgan_from_run(args.checkpoint, args.device)
+    icfg = InvertConfig(steps=args.num_initial_steps,
+                        learning_rate=args.learning_rate,
+                        pixel_l1=args.pixel_l1_weight,
+                        activation_l1=args.activations_l1_weight,
+                        batch_size=args.batch_size)
+    files = sorted(os.path.join(args.input_directory, f)
+                   for f in os.listdir(args.input_directory)
+                   if f.endswith((".mp4", ".avi", ".gif")))
+
+    def load_clip(path):
+        try:
+            clip = decode_clip(path, args.vid_length, cfg.output_size,
+                               strict=False)
+        except Exception:      # undecodable: the finder skips it
+            return None
+        return clip.astype(np.float32) / 127.5 - 1.0
+
+    written = extract_z_trajectories(
+        params, state, cfg, icfg, files, load_clip, args.output_z_folder,
+        batch_size=args.batch_size,
+        num_initial_steps=args.num_initial_steps,
+        num_steps_per_frame=args.num_steps_per_frame,
+        stop_after=args.stop_after,
+        write_comparisons=args.write_comparisons, device=args.device)
+    print(f"wrote {len(written)} trajectories")
+
+
+def cmd_make_paths(args) -> None:
+    """The named expression-path library, generated procedurally."""
+    from gifgan_tpu_torch.demo import make_expression_paths, write_paths
+
+    paths = make_expression_paths(args.z_dim, frames=args.frames,
+                                  magnitude=args.magnitude, seed=args.seed)
+    write_paths(args.out_dir, paths)
+    print(f"wrote {len(paths)} expression paths to {args.out_dir}: "
+          f"{', '.join(sorted(paths))}")
+
+
+def cmd_derive_paths(args) -> None:
+    """Data-derived expression paths from z-extract trajectories."""
+    from gifgan_tpu_torch.demo import (derive_paths, load_trajectories,
+                                       make_expression_paths,
+                                       pca_directions, write_paths)
+
+    trajs = load_trajectories(args.traj_dir)
+    if not trajs:
+        raise SystemExit(f"no (T, z_dim) .npy trajectories in "
+                         f"{args.traj_dir}")
+    paths = derive_paths(trajs, top_k=args.top_k,
+                         smooth_window=args.smooth_window,
+                         magnitude=args.magnitude,
+                         jerk_weight=args.jerk_weight)
+    if args.pca:
+        dirs = pca_directions(trajs, n_directions=max(args.pca, 7))
+        if dirs.shape[0] < 7:   # EXPRESSIONS indexes directions 0..6
+            print(f"warning: only {dirs.shape[0]} PCA directions available "
+                  f"(< 7 needed for the named expression set) — skipping "
+                  f"the pca_* paths")
+        else:
+            frames = next(iter(trajs.values())).shape[0]
+            for name, p_arr in make_expression_paths(
+                    dirs.shape[1], frames=frames,
+                    directions=dirs).items():
+                paths[f"pca_{name}"] = p_arr
+    write_paths(args.out_dir, paths)
+    print(f"derived {len(paths)} paths from {len(trajs)} trajectories "
+          f"-> {args.out_dir}: {', '.join(sorted(paths))}")
+
+
+def cmd_visualize(args) -> None:
+    """Per-dimension z-sweep grids (the reference's visualize modes 0-4)."""
+    import torch
+
+    from gifgan_tpu_torch import resolve_device
+    from gifgan_tpu_torch.eval.visualize import visualize
+    from gifgan_tpu_torch.models import dcgan
+
+    device = resolve_device(args.device)
+    cfg, params, state = _load_dcgan_from_run(args.checkpoint, device)
+
+    def sample_fn(z):
+        return dcgan.sample(params, state, torch.as_tensor(z, device=device),
+                            cfg)
+
+    paths = visualize(sample_fn, cfg.z_dim, args.batch_size, args.option,
+                      args.out_dir, num_dims=args.num_dims, seed=args.seed)
+    print(f"wrote {len(paths)} files to {args.out_dir}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="gifgan_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
@@ -410,6 +600,78 @@ def build_parser() -> argparse.ArgumentParser:
                         "and detect them in one dispatch (detect_clips)")
     _add_device_arg(p, "the device kernels")
     p.set_defaults(fn=cmd_track)
+
+    p = sub.add_parser("invert", help="GAN inversion + path animation")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--input-images", nargs="+", required=True)
+    p.add_argument("--input-paths", nargs="*", default=[])
+    p.add_argument("--sample-dir", required=True)
+    p.add_argument("--num-steps", type=int, default=1000)
+    p.add_argument("--learning-rate", type=float, default=0.05)
+    p.add_argument("--lr-decay-frequency", type=int, default=0)
+    p.add_argument("--lr-decay-amount", type=float, default=0.9)
+    p.add_argument("--discriminator-mode", default="inference",
+                   choices=["train", "inference"])
+    p.add_argument("--pixel-l1-weight", type=float, default=0.0)
+    p.add_argument("--pixel-l2-weight", type=float, default=0.0)
+    p.add_argument("--activations-l1-weight", type=float, default=0.0)
+    p.add_argument("--activations-l2-weight", type=float, default=1.0)
+    p.add_argument("--generator-loss-weight", type=float, default=0.0)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--progress-vid-sections", nargs="*", default=[])
+    _add_device_arg(p, "the inversion")
+    p.set_defaults(fn=cmd_invert)
+
+    p = sub.add_parser("z-extract", help="dataset -> z trajectories")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--input-directory", required=True)
+    p.add_argument("--output-z-folder", required=True)
+    p.add_argument("--vid-length", type=int, default=16)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--num-initial-steps", type=int, default=500)
+    p.add_argument("--num-steps-per-frame", type=int, default=100)
+    p.add_argument("--learning-rate", type=float, default=0.05)
+    p.add_argument("--pixel-l1-weight", type=float, default=1.0)
+    p.add_argument("--activations-l1-weight", type=float, default=0.3)
+    p.add_argument("--stop-after", type=int, default=None)
+    p.add_argument("--write-comparisons", action="store_true")
+    _add_device_arg(p, "the inversion")
+    p.set_defaults(fn=cmd_z_extract)
+
+    p = sub.add_parser("make-paths", help="generate expression-path library")
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--z-dim", type=int, default=100)
+    p.add_argument("--frames", type=int, default=16)
+    p.add_argument("--magnitude", type=float, default=0.8)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_make_paths)
+
+    p = sub.add_parser(
+        "derive-paths",
+        help="derive expression paths from extracted z-trajectories")
+    p.add_argument("--traj-dir", required=True,
+                   help="z-extract output dir of per-clip (T, z_dim) .npy")
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--top-k", type=int, default=4)
+    p.add_argument("--smooth-window", type=int, default=3)
+    p.add_argument("--magnitude", type=float, default=0.0,
+                   help="rescale so the peak frame-delta norm equals this "
+                        "(0 = keep the empirical scale)")
+    p.add_argument("--jerk-weight", type=float, default=2.0)
+    p.add_argument("--pca", type=int, default=0,
+                   help="additionally emit the procedural expression set "
+                        "riding the top-N PCA motion directions")
+    p.set_defaults(fn=cmd_derive_paths)
+
+    p = sub.add_parser("visualize", help="z-sweep sample grids (5 modes)")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--option", type=int, default=1, choices=[0, 1, 2, 3, 4])
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--num-dims", type=int, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    _add_device_arg(p, "the sampler")
+    p.set_defaults(fn=cmd_visualize)
     return ap
 
 

@@ -1,6 +1,10 @@
-"""Batch GIF sampler (gifgan_tpu/serve/sampler.py gif_wall) — the
-`sample-wall` request loop: each request samples a batch of videos and
-writes one numbered GIF per video, atomically."""
+"""Batch GIF sampler and z-trajectory renderer (gifgan_tpu/serve/sampler.py).
+
+- `gif_wall`: the `sample-wall` request loop: each request samples a batch
+  of videos and writes one numbered GIF per video, atomically.
+- `render_z_trajectory`: a saved per-frame z trajectory (.npy) rendered
+  through the image sampler at an upscale factor, as a GIF where the
+  reference writes an mp4."""
 
 from __future__ import annotations
 
@@ -60,3 +64,17 @@ def gif_wall(sample_fn: Callable[[np.ndarray], object], z_dim: int,
             n += 1
         batch += 1
     return n - start_index
+
+
+def render_z_trajectory(sample_fn: Callable[[np.ndarray], object],
+                        z_path: str, out_path: str, scale: int = 2,
+                        fps: float = 8.0) -> str:
+    """z_path: .npy of (T, z_dim), one latent per frame; sample_fn: z ->
+    images (T, s, s, c) in [-1, 1], numpy or tensor. Writes an upscaled
+    GIF."""
+    zs = np.load(z_path).astype(np.float32)
+    u8 = denorm_u8(sample_fn(zs))
+    if scale != 1:
+        u8 = np.repeat(np.repeat(u8, scale, axis=1), scale, axis=2)
+    write_gif(out_path, u8, fps=fps)
+    return out_path

@@ -1,8 +1,10 @@
-"""The port's training and serving commands (gifgan_tpu_torch/cli.py
-train-dcgan, train-vid, sample-wall, quantize-export), driven in-process
-with --device cpu on tiny flags: the reference's workflow (README
-"Cookbook"), image GAN -> video GAN on top of it -> GIF wall, and its int8
-deployment (quantize-export -> sample-wall --quantized), write what they
+"""The port's training, serving and latent commands (gifgan_tpu_torch/cli.py
+train-dcgan, train-vid, sample-wall, quantize-export, invert, z-extract,
+make-paths, derive-paths, visualize), driven in-process with --device cpu
+on tiny flags: the reference's workflow (README "Cookbook"), image GAN ->
+video GAN on top of it -> GIF wall, its int8 deployment (quantize-export ->
+sample-wall --quantized), and its latent tooling (train-dcgan -> invert /
+z-extract -> derive-paths -> invert --input-paths), write what they
 should."""
 
 import json
@@ -280,3 +282,171 @@ def test_jax_artifact_serves_through_the_port(tmp_path):
     assert np.abs(want).max() > 0.05
     np.testing.assert_allclose(sample_fn(z).numpy(), want, rtol=0,
                                atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def img_run(tmp_path_factory):
+    """A tiny train-dcgan run's checkpoints dir (2 steps, 3 channels)."""
+    run = str(tmp_path_factory.mktemp("i") / "img")
+    assert cli.main(["train-dcgan", "--run-dir", run, "--dataset-size", "16",
+                     "--batch-size", "8", "--steps-limit", "2",
+                     "--sample-every", "0", "--checkpoint-every", "2"]
+                    + IMG_FLAGS) == 0
+    return os.path.join(run, "checkpoints")
+
+
+def test_invert_z_extract_derive_paths_then_invert_with_paths(img_run,
+                                                              tmp_path):
+    """The latent workflow: make-paths; invert two PNGs (one resized) with
+    a path file; z-extract over GIF clips (one batch padded, comparisons
+    on); derive-paths from the trajectories; invert again animating a
+    derived .txt path and an extracted .npy trajectory; visualize."""
+    from gifgan_tpu_torch.data.video import write_gif
+    from gifgan_tpu_torch.ops.image import write_png
+
+    rng = np.random.default_rng(0)
+    imgs = [str(tmp_path / "a.png"), str(tmp_path / "b.png")]
+    write_png(imgs[0], rng.integers(0, 256, (32, 32, 3), dtype=np.uint8))
+    write_png(imgs[1], rng.integers(0, 256, (40, 36, 4), dtype=np.uint8))
+    clips = tmp_path / "clips"
+    clips.mkdir()
+    for i in range(3):
+        write_gif(str(clips / f"c{i}.gif"),
+                  rng.integers(0, 256, (4, 48, 48, 3), dtype=np.uint8))
+    (clips / "notes.txt").write_text("not a clip")
+    d = lambda n: str(tmp_path / n)
+
+    assert cli.main(["make-paths", "--out-dir", d("paths"), "--z-dim", "16",
+                     "--frames", "4"]) == 0
+    assert len(os.listdir(d("paths"))) == 8
+    assert cli.main(["invert", "--checkpoint", img_run, "--input-images",
+                     *imgs, "--input-paths", d("paths/smile.txt"),
+                     "--sample-dir", d("inv"), "--num-steps", "6",
+                     "--batch-size", "5", "--pixel-l1-weight", "1",
+                     "--lr-decay-frequency", "2",
+                     "--progress-vid-sections", "0,2", "--device",
+                     "cpu"]) == 0
+    # (targets * (5 // 2))[:5], as the reference builds the batch: a, b,
+    # a, b
+    z = np.load(d("inv/z.npy"))
+    assert z.shape == (4, 16) and np.isfinite(z).all()
+    assert sorted(os.listdir(d("inv"))) == ["final.png", "path_00.gif",
+                                            "z.npy"]
+    assert native_gif.decode_gif(d("inv/path_00.gif")).shape == (4, 32, 32,
+                                                                 3)
+
+    assert cli.main(["z-extract", "--checkpoint", img_run,
+                     "--input-directory", str(clips), "--output-z-folder",
+                     d("zs"), "--vid-length", "4", "--batch-size", "2",
+                     "--num-initial-steps", "3", "--num-steps-per-frame",
+                     "2", "--write-comparisons", "--device", "cpu"]) == 0
+    assert sorted(os.listdir(d("zs"))) == [
+        f"c{i}{s}" for i in range(3) for s in (".npy", "_comparison.gif")]
+    assert np.load(d("zs/c2.npy")).shape == (4, 16)
+    # target | reconstruction, side by side
+    assert native_gif.decode_gif(d("zs/c0_comparison.gif")).shape == (
+        4, 32, 64, 3)
+
+    assert cli.main(["derive-paths", "--traj-dir", d("zs"), "--out-dir",
+                     d("dpaths"), "--top-k", "2"]) == 0
+    derived = sorted(os.listdir(d("dpaths")))
+    assert len(derived) == 2 and all(n.startswith("data_c")
+                                     for n in derived)
+    assert cli.main(["invert", "--checkpoint", img_run, "--input-images",
+                     imgs[0], "--input-paths",
+                     d("dpaths/" + derived[0]), d("zs/c1.npy"),
+                     "--sample-dir", d("inv2"), "--num-steps", "2",
+                     "--batch-size", "2", "--device", "cpu"]) == 0
+    # no progress sections: no frames, so no final.png (as the reference)
+    assert sorted(os.listdir(d("inv2"))) == ["path_00.gif", "path_01.gif",
+                                             "z.npy"]
+
+    for option, n in ((0, 1), (1, 3), (4, 4)):
+        out = d(f"vis{option}")
+        assert cli.main(["visualize", "--checkpoint", img_run, "--out-dir",
+                         out, "--option", str(option), "--num-dims", "3",
+                         "--batch-size", "8", "--device", "cpu"]) == 0
+        assert len(os.listdir(out)) == n, os.listdir(out)
+
+
+def test_read_image_is_rgb_and_resizes_as_the_jax_cli(tmp_path):
+    """`invert` reads its images with cv2 (BGR): the port turns them to RGB
+    and drops alpha, as the JAX CLI's imageio read gives them; a resize
+    matches its jax.image.resize "linear" within float32 rounding."""
+    import imageio.v2 as imageio
+    import jax
+    import jax.numpy as jnp
+
+    from gifgan_tpu_torch.core.config import DCGANConfig
+    from gifgan_tpu_torch.ops.image import write_png
+
+    im = np.zeros((32, 32, 4), np.uint8)
+    im[..., 0], im[..., 1], im[..., 2], im[..., 3] = 250, 120, 5, 77
+    im[:4, :4, 0] = 10
+    write_png(str(tmp_path / "rgba.png"), im)
+    got = cli._read_image(str(tmp_path / "rgba.png"),
+                          DCGANConfig(output_size=32))
+    want = imageio.imread(str(tmp_path / "rgba.png"))[..., :3].astype(
+        np.float32) / 127.5 - 1.0
+    np.testing.assert_array_equal(got, want)
+    assert got[10, 10, 0] > got[10, 10, 2]              # red, not blue
+    gray = cli._read_image(str(tmp_path / "rgba.png"),
+                           DCGANConfig(output_size=32, c_dim=1))
+    np.testing.assert_array_equal(gray, want[..., :1])
+
+    big = np.random.default_rng(1).integers(0, 256, (50, 44, 3),
+                                            dtype=np.uint8)
+    write_png(str(tmp_path / "big.png"), big)
+    got = cli._read_image(str(tmp_path / "big.png"),
+                          DCGANConfig(output_size=32))
+    want = np.clip(np.asarray(jax.image.resize(
+        jnp.asarray(big, jnp.float32), (32, 32, 3), method="linear")),
+        0, 255) / 127.5 - 1.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_a_run_the_jax_package_wrote_inverts_through_the_port(tmp_path):
+    """A checkpoint and params.json written by the JAX package (its
+    init_train_state, no training) load through `_load_dcgan_from_run`
+    bit-equal, and `invert` and `visualize` run on them."""
+    import jax
+
+    from gifgan_tpu.core import checkpoint as jckpt
+    from gifgan_tpu.core.config import (DCGANConfig as JDCGANConfig,
+                                        TrainConfig as JTrainConfig,
+                                        save_config as jsave_config)
+    from gifgan_tpu.train import gan as jgan
+    from gifgan_tpu_torch.core import interop
+    from gifgan_tpu_torch.ops.image import write_png
+
+    cfg = JDCGANConfig(output_size=32, c_dim=3, z_dim=12, gf_dim=8,
+                       df_dim=8)
+    tcfg = JTrainConfig(batch_size=4)
+    ts = jax.jit(jgan.init_train_state, static_argnums=(1, 2))(
+        jax.random.PRNGKey(3), cfg, tcfg)
+    run = tmp_path / "jrun"
+    jckpt.save(str(run / "checkpoints"), 0, ts._asdict())
+    jsave_config({"model": cfg, "train": tcfg}, str(run / "params.json"))
+
+    pcfg, params, state = cli._load_dcgan_from_run(
+        str(run / "checkpoints"), "cpu")
+    assert (pcfg.z_dim, pcfg.gf_dim, pcfg.output_size) == (12, 8, 32)
+    got = interop.to_jax_flat({"params": params, "state": state})
+    want = jckpt._flatten_with_paths({"params": ts.params,
+                                      "state": ts.state})
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+    write_png(str(tmp_path / "a.png"), np.full((32, 32, 3), 128, np.uint8))
+    assert cli.main(["invert", "--checkpoint", str(run / "checkpoints"),
+                     "--input-images", str(tmp_path / "a.png"),
+                     "--sample-dir", str(tmp_path / "inv"), "--num-steps",
+                     "3", "--batch-size", "2", "--progress-vid-sections",
+                     "0,1", "--device", "cpu"]) == 0
+    assert np.load(tmp_path / "inv" / "z.npy").shape == (2, 12)
+    assert os.path.exists(tmp_path / "inv" / "final.png")
+    assert cli.main(["visualize", "--checkpoint", str(run / "checkpoints"),
+                     "--out-dir", str(tmp_path / "vis"), "--option", "0",
+                     "--batch-size", "4", "--device", "cpu"]) == 0
+    assert os.listdir(tmp_path / "vis") == ["test_random.png"]

@@ -32,7 +32,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 46, out.stdout
+    assert int(n) >= 56, out.stdout
     assert bad == "[]", bad
 
 
@@ -43,6 +43,7 @@ def _entry_points():
     from gifgan_tpu_torch.core.interop import from_jax_flat
     from gifgan_tpu_torch.data import loader, video
     from gifgan_tpu_torch.data.device import DeviceCorpus
+    from gifgan_tpu_torch.eval import activation_distances
     from gifgan_tpu_torch.kernels import flow
     from gifgan_tpu_torch.ops import quant
     from gifgan_tpu_torch import cli
@@ -120,6 +121,16 @@ def _entry_points():
         "cli_quantize_export": lambda: cli.main(
             ["quantize-export", "--checkpoint", "/none", "--out-dir",
              "/none", "--calib-batches", "2", "--bias-correct"]),
+        "cli_invert": lambda: cli.main(
+            ["invert", "--checkpoint", "/none", "--input-images", "/none",
+             "--sample-dir", "/none"]),
+        "cli_z_extract": lambda: cli.main(
+            ["z-extract", "--checkpoint", "/none", "--input-directory",
+             "/none", "--output-z-folder", "/none"]),
+        "cli_visualize": lambda: cli.main(
+            ["visualize", "--checkpoint", "/none", "--out-dir", "/none"]),
+        "activation_distances": lambda: activation_distances(
+            {}, {}, DCGANConfig(), [frames.astype(np.float32)]),
     }
 
 
