@@ -84,6 +84,22 @@ Phases, one report line each, any failed check raising:
             variant on the flagship VidGAN (8 videos x 16 frames); ms per
             inversion step over a 50-step chunk by CUDA events, seconds
             per z-extract clip;
+9e. recurrent the other model families: the recurrent_image GAN's G, D,
+            rollout and one train step for each variant (shared D convs,
+            3 LSTM layers with dropout masks passed in, residual
+            prediction with the pixel term and warm-up), one conditional
+            DCGAN step and PredNet's loss and gradient, card vs CPU at a
+            small config (float32, TF32 off); train-recurrent through the
+            CLI at the JAX command's defaults (gf 64, 40 clips of 17
+            64x64x3 frames, LSTM 100, float32) on 80 synthetic clips, the
+            host path and --device-corpus (4 steps each, a prediction GIF
+            grid, checkpoints) and a resume of the latter (2 steps), its
+            checkpoint restored into a fresh RecurrentTrainState, ms/step
+            by CUDA events and a 16-frame rollout; the conditional DCGAN at
+            MNIST width (batch 64, 30 steps on synthetic digits), PredNet at
+            its study's width (64x64x3, channels (32, 64), batch 16, T 16,
+            30 Adam steps: the loss falls) and the prototypes' fit at
+            tests/test_prototypes.py's sizes and thresholds;
 10. train   train_chunk_ids, K = 4 steps of B = 64 clips at the flagship
             width, frames gathered by K1 from the resident corpus;
 11. prep    2 synthetic 48-frame 360x480 source GIFs with a drifting,
@@ -106,14 +122,15 @@ Phases, one report line each, any failed check raising:
             train_chunk of K = 2 steps at the flagship width on the batches.
 
 The launch counts are zeroed just before each of serve, the three
-workflow commands, serve_int8 and invert (no kernel of the four is on
-their paths, and they report their counts), train, prep, track and feed
-and read just after. Then a `kernels` JSON line, the nvidia-smi
+workflow commands, serve_int8, invert and recurrent (no kernel of the four
+is on their paths, and they report their counts), train, prep, track and
+feed and read just after. Then a `kernels` JSON line, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Without CUDA it
 exits 2 and prints no result. --profile adds a torch.profiler table of one
 video training step (train), one image-DCGAN step (workflow), one
-request's int8 and bf16 float sample (serve_int8) and one inversion step
-(invert), and cProfile's table of
+request's int8 and bf16 float sample (serve_int8), one inversion step
+(invert) and one full-width recurrent step (recurrent), and cProfile's
+table of
 the track phase's dispatcher thread.
 """
 
@@ -142,8 +159,9 @@ from gifgan_tpu_torch import cli
 from gifgan_tpu_torch.core import checkpoint as ckpt
 from gifgan_tpu_torch.core import interop
 from gifgan_tpu_torch.core.config import (DCGANConfig, InvertConfig,
-                                          TrackConfig, TrainConfig,
-                                          VidGANConfig, load_config)
+                                          RecurrentImageConfig, TrackConfig,
+                                          TrainConfig, VidGANConfig,
+                                          load_config)
 from gifgan_tpu_torch.data.device import DeviceCorpus
 from gifgan_tpu_torch.data.loader import clip_batches_from_files
 from gifgan_tpu_torch.data.synthetic import synthetic_clips
@@ -161,7 +179,10 @@ from gifgan_tpu_torch.kernels.resize import (interp_taps, launch_plan,
                                              resize_normalize_plain)
 from gifgan_tpu_torch import invert as inv_api
 from gifgan_tpu_torch.invert import optimize as inv_opt
-from gifgan_tpu_torch.models import dcgan, vid_dcgan
+from gifgan_tpu_torch.data.mnist import synthetic_digits
+from gifgan_tpu_torch.models import dcgan, prednet, vid_dcgan
+from gifgan_tpu_torch.models import recurrent_image as rimage
+from gifgan_tpu_torch.models import rnn_prototypes as protos
 from gifgan_tpu_torch.models.dcgan import to_device
 from gifgan_tpu_torch.ops import quant
 from gifgan_tpu_torch.ops.image import denorm_u8, write_png
@@ -176,6 +197,8 @@ from gifgan_tpu_torch.track.haar_device import (DeviceHaarDetector,
 from gifgan_tpu_torch.track.pipeline import process_video
 from gifgan_tpu_torch.track.stats import TrackStats
 from gifgan_tpu_torch.train import gan, vid
+from gifgan_tpu_torch.train import recurrent as rtrain
+from gifgan_tpu_torch.train.gan import _differentiable, _grads
 
 # H100 SXM data-sheet peaks (NVIDIA), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -224,6 +247,16 @@ INV_CHECK_BATCH, INV_CHECK_STEPS, INV_STEPS = 8, 20, 200
 # reduction orders on one device, at 0.01 by a fraction of lr
 INV_CHECK_LR = 0.01
 INV_CLIPS, INV_NESTED_STEPS, INV_TIMED_STEPS = 8, 10, 50
+# recurrent: train-recurrent's runs (the JAX command's defaults: gf 64,
+# batch 40, 16 + 1 frames of 64x64x3, LSTM 100, float32) on a synthetic
+# corpus of two batches; the conditional DCGAN (MNIST width), PredNet (the
+# study's width) and their step counts; warm and timed steps
+REC_CLIPS, REC_STEPS, REC_RESUME_STEPS, REC_ROLLOUT = 80, 4, 2, 16
+REC_WIDTH = dict(image_size=64, c_dim=3, seq_length=16, base_filters=64,
+                 lstm_units=100, batch_size=40)
+COND_BATCH, COND_STEPS = 64, 30
+PREDNET_BATCH, PREDNET_LEN, PREDNET_CLIPS, PREDNET_STEPS = 16, 16, 64, 30
+WARM_STEPS, TIMED_STEPS = 2, 5
 # the H100 SXM data sheet's dense int8 tensor-core rate
 INT8_OPS = 1979e12
 DEVICE = "cuda"
@@ -1162,13 +1195,7 @@ def phase_check(seed):
     itcfg = TrainConfig(batch_size=BATCH)
     flat = interop.to_jax_flat(gan.init_train_state(
         torch.Generator().manual_seed(seed + 5), icfg, itcfg, device="cpu"))
-    for k, v in flat.items():
-        if k.endswith("/count"):
-            flat[k] = np.full_like(v, 3)
-        elif "/mu/" in k:
-            flat[k] = (1e-3 * rng.standard_normal(v.shape)).astype(v.dtype)
-        elif "/nu/" in k:
-            flat[k] = (1e-6 * (1 + rng.random(v.shape))).astype(v.dtype)
+    _warm_adam(flat, rng)
     images = rng.uniform(-1, 1, (BATCH, 64, 64, 3)).astype(np.float32)
     z = rng.uniform(-1, 1, (BATCH, 100)).astype(np.float32)
     out = {}
@@ -1858,6 +1885,361 @@ def phase_invert(seed, workdir, img_ckpt, vid_ts, vid_cfg, smi,
     return launches
 
 
+REC_VARIANTS = {
+    "plain": {},
+    "share_disc_conv": dict(share_disc_conv=True),
+    "deep_dropout": dict(num_lstm_layers=3, lstm_dropout=0.2),
+    "residual_pixel_warmup": dict(residual_prediction=True,
+                                  pixel_loss_scalar=10.0,
+                                  adversarial_after_steps=5),
+}
+
+
+def _warm_adam(flat, rng):
+    """Adam slots of a flat state at count 3 (phase_check says why)."""
+    for k, v in flat.items():
+        if k.endswith("/count"):
+            flat[k] = np.full_like(v, 3)
+        elif "/mu/" in k:
+            flat[k] = (1e-3 * rng.standard_normal(v.shape)).astype(v.dtype)
+        elif "/nu/" in k:
+            flat[k] = (1e-6 * (1 + rng.random(v.shape))).astype(v.dtype)
+    return flat
+
+
+def _rel(got, want):
+    """max |got - want| / max |want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
+
+
+def _card_vs_cpu(what, run, lr):
+    """run(device) -> (outputs {name: array or float}, flat JAX-layout
+    state after the step); the card's against the CPU's: outputs relative
+    (forwards under 1e-4, step metrics under 1e-3), weights in units of lr
+    (Adam moves a weight by ~lr whatever its gradient's size: at most 3),
+    other state leaves (BN moments) relative under 1e-3."""
+    (out_cpu, st_cpu), (out_gpu, st_gpu) = run("cpu"), run(DEVICE)
+    fwd = max([_rel(out_gpu[k], v) for k, v in out_cpu.items()
+               if not isinstance(v, float)] or [0.0])
+    met = max([_rel(out_gpu[k], v) for k, v in out_cpu.items()
+               if isinstance(v, float)] or [0.0])
+    w = max(float(np.abs(st_gpu[k] - v).max()) for k, v in st_cpu.items()
+            if k.startswith("params")) / lr
+    other = max([_rel(st_gpu[k], v) for k, v in st_cpu.items()
+                 if k.startswith("state/")] or [0.0])
+    check(fwd < 1e-4, f"{what}: forwards card vs CPU rel err {fwd}")
+    check(met < 1e-3, f"{what}: step metrics card vs CPU rel err {met}")
+    check(w <= 3.0, f"{what}: weights card vs CPU {w} x lr")
+    check(other < 1e-3, f"{what}: BN state card vs CPU rel err {other}")
+    return fwd, met, w, other
+
+
+def _recurrent_checks(seed):
+    """The new families on the card against the CPU, float32, TF32 off,
+    from one state converted onto each device: the recurrent G, D, rollout
+    and one train step for each variant (dropout masks passed in), one
+    conditional DCGAN step (instance noise passed in), PredNet's loss and
+    gradient."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed + 50)
+    tcfg = TrainConfig(batch_size=4)
+    clips = rng.uniform(0, 1, (4, 5, 32, 32, 3)).astype(np.float32)
+    errs = {}
+    for variant, kw in REC_VARIANTS.items():
+        cfg = RecurrentImageConfig(image_size=32, c_dim=3, seq_length=4,
+                                   base_filters=8, lstm_units=16, **kw)
+        flat = _warm_adam(interop.to_jax_flat(rtrain.init_train_state(
+            torch.Generator().manual_seed(seed + 51), cfg, tcfg,
+            device="cpu")), rng)
+        masks = None
+        if cfg.lstm_dropout:
+            g = torch.Generator().manual_seed(seed + 52)
+            masks = [rimage.dropout_masks(g, cfg, 4, 4) for _ in range(3)]
+
+        def run(dev, cfg=cfg, flat=flat, masks=masks):
+            ts = rtrain.RecurrentTrainState.from_tree(
+                interop.from_jax_flat(flat, dev))
+            x = torch.from_numpy(clips).to(dev)
+            m = None if masks is None else [k.to(dev) for k in masks]
+            with torch.no_grad():
+                out = {
+                    "generator": rimage.generator(
+                        ts.params_g, x[:, :-1], cfg, d_params=ts.params_d,
+                        dropout=None if m is None else m[0]),
+                    "discriminator": rimage.discriminator(ts.params_d,
+                                                          x[:, 1:], cfg),
+                    "rollout": rimage.rollout(ts.params_g, x[:, 0], 6, cfg,
+                                              d_params=ts.params_d)}
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            ts, metrics = rtrain.train_step(ts, x, None, cfg, tcfg,
+                                            dropout_masks=m)
+            out.update({k: float(v) for k, v in metrics.items()})
+            return out, interop.to_jax_flat(ts)
+
+        errs[variant] = _card_vs_cpu(f"recurrent {variant}", run,
+                                     tcfg.learning_rate)
+
+    ccfg = DCGANConfig(output_size=28, c_dim=1, z_dim=16, gf_dim=8,
+                       df_dim=8, noise_std=0.1)
+    ctcfg = TrainConfig(batch_size=16, d_learning_rate=5e-4)
+    flat = _warm_adam(interop.to_jax_flat(gan.init_cond_train_state(
+        torch.Generator().manual_seed(seed + 53), ccfg, 10, ctcfg,
+        device="cpu")), rng)
+    images, y = synthetic_digits(16, seed=seed)
+    z = rng.uniform(-1, 1, (16, 16)).astype(np.float32)
+    noise = (0.1 * rng.standard_normal(images.shape)).astype(np.float32)
+
+    def run_cond(dev):
+        t = lambda a: torch.from_numpy(a).to(dev)
+        ts = gan.CondTrainState.from_tree(interop.from_jax_flat(flat, dev))
+        ts, m = gan.cond_train_step(ts, t(images), t(y), t(z), None, ccfg,
+                                    ctcfg, noise=[t(noise)])
+        return ({k: float(v) for k, v in m.items()},
+                interop.to_jax_flat(ts))
+
+    errs["cond_dcgan"] = _card_vs_cpu("cond_train_step", run_cond,
+                                      ctcfg.d_learning_rate)
+
+    pcfg = prednet.PredNetConfig(image_size=16, c_dim=3, channels=(8, 16))
+    pflat = interop.to_jax_flat(prednet.init(
+        torch.Generator().manual_seed(seed + 54), pcfg, device="cpu"))
+    pclips = synthetic_clips(4, length=6, size=16, seed=seed).astype(
+        np.float32) / 255.0
+
+    def run_prednet(dev):
+        keys, leaves, p = _differentiable(interop.from_jax_flat(pflat, dev))
+        with torch.enable_grad():
+            loss = prednet.loss_fn(p, torch.from_numpy(pclips).to(dev), pcfg)
+            grads = interop.to_jax_flat(_grads(loss, keys, leaves))
+        return loss.item(), grads
+
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = run_prednet("cpu"), run_prednet(DEVICE)
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_err = max(_rel(g_gpu[k], v) for k, v in g_cpu.items())
+    check(loss_err < 1e-4, f"PredNet loss card vs CPU rel err {loss_err}")
+    # a value within rounding of a relu kink may take the other branch on
+    # the card and move a leaf's gradient by ~1e-3 of its largest entry
+    # (1.5e-3 seen on the CPU against the JAX package, tests/
+    # test_torch_prednet.py); a wrong function is off by O(1)
+    check(grad_err < 1e-2, f"PredNet gradient card vs CPU rel err {grad_err}")
+    torch.backends.cudnn.allow_tf32 = tf32[0]
+    torch.backends.cuda.matmul.allow_tf32 = tf32[1]
+    say("recurrent", check="card vs CPU (float32, TF32 off)",
+        **{f"{k}_fwd_met_w_bn": ",".join(f"{e:.3g}" for e in v)
+           for k, v in errs.items()},
+        prednet_loss_rel_err=f"{loss_err:.3g}",
+        prednet_grad_rel_err=f"{grad_err:.3g}",
+        tolerances="fwd 1e-4, metrics 1e-3, weights 3 lr, bn 1e-3, "
+                   "prednet loss 1e-4 grad 1e-2")
+
+
+def _timed_steps(step):
+    """(ms per step by CUDA events over TIMED_STEPS warm calls of step(),
+    peak device bytes over them)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = event_ms(step, [()], warmup=WARM_STEPS, reps=TIMED_STEPS)
+    return ms, torch.cuda.max_memory_allocated()
+
+
+def _fit_proto(name, params, loss_fn, data_fn, steps, lr, ratio, acc_fn,
+               min_acc):
+    t = time.perf_counter()
+    params, first, last = protos.fit(params, loss_fn, data_fn, steps=steps,
+                                     lr=lr)
+    secs = time.perf_counter() - t
+    acc = acc_fn(params) if acc_fn else None
+    check(last < ratio * first, f"{name}: last loss {last} under {ratio} x "
+                                f"first {first}")
+    check(acc is None or acc > min_acc, f"{name}: accuracy {acc}")
+    say("recurrent", prototype=name, steps=steps, loss_first=f"{first:.5f}",
+        loss_last=f"{last:.5f}", accuracy=acc, seconds=f"{secs:.2f}")
+
+
+def phase_recurrent(seed, workdir, smi, profile=False):
+    """The other model families: card vs CPU; train-recurrent through the
+    CLI at full width on both data paths with a resume, its checkpoint
+    restored, ms/step and a 16-frame rollout; the conditional DCGAN at
+    MNIST width; PredNet at its study's width; the prototypes' fit."""
+    t0 = time.perf_counter()
+    reset_counts()
+    _recurrent_checks(seed)
+
+    # train-recurrent, the JAX command's defaults (gf 64, batch 40, 17-frame
+    # 64x64x3 clips, LSTM 100, float32)
+    d = lambda n: os.path.join(workdir, n)
+    flags = ["--dataset-size", str(REC_CLIPS), "--sample-every",
+             str(REC_STEPS)]
+    runs = {}
+    for name, argv in (
+            ("host", ["--run-dir", d("rec_host"), "--steps-limit",
+                      str(REC_STEPS), "--checkpoint-every", "2"]),
+            ("device_corpus", ["--run-dir", d("rec_dc"), "--steps-limit",
+                               str(REC_STEPS), "--device-corpus"]),
+            ("resume", ["--run-dir", d("rec_dc"), "--steps-limit",
+                        str(REC_STEPS + REC_RESUME_STEPS),
+                        "--device-corpus"])):
+        secs, counts, peak = _drive(["train-recurrent"] + argv + flags)
+        run_dir = argv[1]
+        steps = int(argv[3])
+        ms, last = _check_run(f"train-recurrent {name}", run_dir, steps,
+                              [("pred_", ".gif")])
+        check(math.isfinite(last["pixel_mae"]), f"{name} pixel_mae")
+        runs[name] = run_dir
+        say("recurrent", run=f"train_recurrent_{name}", steps=steps,
+            seconds=f"{secs:.2f}",
+            ms_per_step_host_clock=",".join(f"{x:.1f}" for x in ms),
+            d_loss=f"{last['d_loss']:.5f}", g_loss=f"{last['g_loss']:.5f}",
+            pixel_mae=f"{last['pixel_mae']:.5f}", peak_bytes=peak,
+            launches=counts)
+    check(ckpt.all_steps(d("rec_host/checkpoints")) == [2, REC_STEPS],
+          "host run checkpoints every 2 steps and at the end")
+    steps = [r["step"] for r in _records(runs["resume"])]
+    check(steps == list(range(1, REC_STEPS + REC_RESUME_STEPS + 1)),
+          f"resumed run logged steps {steps}")
+    check(ckpt.all_steps(d("rec_dc/checkpoints"))
+          == [REC_STEPS, REC_STEPS + REC_RESUME_STEPS], "resumed checkpoints")
+    run_cfg = load_config(d("rec_dc/params.json"))
+    cfg, tcfg = run_cfg["model"], run_cfg["train"]
+    width = {k: getattr(tcfg if k == "batch_size" else cfg, k)
+             for k in REC_WIDTH}
+    check(width == REC_WIDTH and cfg.compute_dtype == "float32",
+          f"train-recurrent ran at {width}, {cfg.compute_dtype}")
+    fresh = rtrain.init_train_state(torch.Generator().manual_seed(seed + 60),
+                                    cfg, tcfg, device=DEVICE)
+    ts = ckpt.restore(d("rec_dc/checkpoints"), fresh)
+    check(isinstance(ts, rtrain.RecurrentTrainState)
+          and int(ts.step) == REC_STEPS + REC_RESUME_STEPS,
+          "the checkpoint restores into a fresh RecurrentTrainState")
+    w0, w = fresh.params_g["lstm0"]["w"], ts.params_g["lstm0"]["w"]
+    check(bool(torch.isfinite(w).all()) and not torch.equal(w, w0),
+          "restored weights are the trained ones")
+
+    corpus = DeviceCorpus(synthetic_clips(REC_CLIPS, length=cfg.seq_length
+                                          + 1, size=cfg.image_size),
+                          method="take", out_range="unit", device=DEVICE)
+    clips = corpus.sample(np.arange(tcfg.batch_size))
+    ms, peak = _timed_steps(lambda: rtrain.train_step(ts, clips, None, cfg,
+                                                      tcfg))
+    t = time.perf_counter()
+    video = rtrain.sample_rollout(ts, clips[:, 0], REC_ROLLOUT, cfg)
+    torch.cuda.synchronize()
+    roll_ms = (time.perf_counter() - t) * 1e3
+    check(video.shape == (tcfg.batch_size, REC_ROLLOUT, cfg.image_size,
+                          cfg.image_size, cfg.c_dim)
+          and bool(torch.isfinite(video).all()) and float(video.min()) >= 0
+          and float(video.max()) <= 1, "rollout of 16 frames in [0, 1]")
+    say("recurrent", timing="train_step", width=width, dtype="float32",
+        ms_per_step=f"{ms:.3f}", peak_bytes=peak,
+        rollout_frames=REC_ROLLOUT, rollout_ms=f"{roll_ms:.1f}",
+        card=repr(smi))
+    if profile:
+        profile_step("recurrent_step", lambda: rtrain.train_step(
+            ts, clips, None, cfg, tcfg))
+
+    # the conditional DCGAN at MNIST width on synthetic digits
+    ccfg = DCGANConfig(output_size=28, c_dim=1, gf_dim=64, df_dim=64)
+    ctcfg = TrainConfig(batch_size=COND_BATCH)
+    cts = gan.init_cond_train_state(torch.Generator().manual_seed(seed + 70),
+                                    ccfg, 10, ctcfg, device=DEVICE)
+    x, y = (torch.from_numpy(a).to(DEVICE).reshape(4, COND_BATCH,
+                                                   *a.shape[1:])
+            for a in synthetic_digits(4 * COND_BATCH, seed=seed))
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 71)
+    losses = []
+    for i in range(COND_STEPS):
+        z = torch.rand(COND_BATCH, ccfg.z_dim, device=DEVICE,
+                       generator=g) * 2 - 1
+        cts, m = gan.cond_train_step(cts, x[i % 4], y[i % 4], z, g, ccfg,
+                                     ctcfg)
+        losses.append((float(m["d_loss"]), float(m["g_loss"])))
+    check(np.isfinite(losses).all(), "conditional DCGAN losses finite")
+    labels = torch.eye(10, device=DEVICE)[torch.arange(COND_BATCH) % 10]
+    samples = gan.cond_sample_step(cts, z, labels, ccfg)
+    check(samples.shape == (COND_BATCH, 28, 28, 1)
+          and float(samples.min()) >= 0
+          and float(samples.max()) <= 1, "conditional samples in [0, 1]")
+    ms, peak = _timed_steps(lambda: gan.cond_train_step(
+        cts, x[0], y[0], z, g, ccfg, ctcfg))
+    say("recurrent", timing="cond_train_step", model="28x28x1 y 10, gf=df=64"
+        f", gfc=dfc=1024, batch {COND_BATCH}, float32", steps=COND_STEPS,
+        d_loss=f"{losses[0][0]:.4f}->{losses[-1][0]:.4f}",
+        g_loss=f"{losses[0][1]:.4f}->{losses[-1][1]:.4f}",
+        ms_per_step=f"{ms:.3f}", peak_bytes=peak, card=repr(smi))
+
+    # PredNet at the study's width (examples/train_prednet_study.py)
+    pcfg = prednet.PredNetConfig(image_size=64, c_dim=3, channels=(32, 64))
+    params = prednet.init(torch.Generator().manual_seed(seed + 80), pcfg,
+                          device=DEVICE)
+    pclips = torch.from_numpy(synthetic_clips(
+        PREDNET_CLIPS, length=PREDNET_LEN, size=64, seed=seed + 1).astype(
+        np.float32) / 255.0).to(DEVICE)
+    opt = gan.Adam(1e-3)
+    state = opt.init(params)
+
+    def pn_step(params, state, batch):
+        keys, leaves, p = _differentiable(params)
+        with torch.enable_grad():
+            loss = prednet.loss_fn(p, batch, pcfg)
+            grads = _grads(loss, keys, leaves)
+        updates, state = opt.update(grads, state)
+        return gan.apply_updates(params, updates), state, loss.detach()
+
+    with torch.no_grad():
+        loss0 = float(prednet.loss_fn(params, pclips[:PREDNET_BATCH], pcfg))
+    prng = np.random.default_rng(seed + 81)
+    for _ in range(PREDNET_STEPS):
+        idx = torch.as_tensor(prng.integers(0, PREDNET_CLIPS, PREDNET_BATCH))
+        params, state, _ = pn_step(params, state, pclips[idx.to(DEVICE)])
+    with torch.no_grad():
+        loss1 = float(prednet.loss_fn(params, pclips[:PREDNET_BATCH], pcfg))
+    check(math.isfinite(loss1) and loss1 < loss0,
+          f"PredNet loss falls: {loss0} -> {loss1}")
+    ms, peak = _timed_steps(lambda: pn_step(params, state,
+                                            pclips[:PREDNET_BATCH]))
+    say("recurrent", timing="prednet_step", model="64x64x3, channels "
+        f"(32, 64), batch {PREDNET_BATCH}, T {PREDNET_LEN}, Adam 1e-3",
+        steps=PREDNET_STEPS,
+        loss=f"{loss0:.5f}->{loss1:.5f}", ratio=f"{loss1 / loss0:.4f}",
+        ms_per_step=f"{ms:.3f}", peak_bytes=peak, card=repr(smi))
+
+    # the prototypes, at tests/test_prototypes.py's sizes and thresholds
+    gen = lambda s: torch.Generator().manual_seed(seed + s)
+    dgen = lambda s: torch.Generator(device=DEVICE).manual_seed(seed + s)
+
+    def echo_acc(p):
+        x, y = protos.echo_data(dgen(99), 64, 12, 2)
+        pred = protos.echo_rnn_apply(p, x).argmax(-1)
+        return float((pred[:, 2:] == y[:, 2:]).float().mean())
+
+    def cls_acc(p):
+        x, labels = protos.conv_cls_data(dgen(7), 32, 6)
+        return float((protos.conv_cls_apply(p, x).argmax(-1) == labels)
+                     .float().mean())
+
+    _fit_proto("echo", protos.echo_rnn_init(gen(90), device=DEVICE),
+               protos.echo_loss,
+               lambda g: protos.echo_data(g, 32, 12, 2), 150, 1e-2, 0.5,
+               echo_acc, 0.9)
+    _fit_proto("vector_echo", protos.vector_echo_init(gen(91), 6,
+                                                      device=DEVICE),
+               protos.vector_echo_loss,
+               lambda g: protos.vector_echo_data(g, 32, 10, 6, 1), 200,
+               1e-2, 0.5, None, None)
+    _fit_proto("conv_cls", protos.conv_cls_init(gen(92), device=DEVICE),
+               protos.conv_cls_loss,
+               lambda g: protos.conv_cls_data(g, 16, 6), 120, 3e-3, 0.7,
+               cls_acc, 0.6)
+    launches = read_counts()
+    say("recurrent", launches=launches,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
 # kernel groups of a profile table, by substrings of the kernel's name
 TRAIN_GROUPS = {"conv_gemm": ("xmma", "gemm", "conv", "cudnn", "wgrad",
                               "dgrad", "fprop"),
@@ -2134,6 +2516,7 @@ def main(argv=None) -> int:
         phase_invert(args.seed, workdir,
                      os.path.join(workdir, "img", "checkpoints"), ts, cfg,
                      smi, args.profile)
+        phase_recurrent(args.seed, workdir, smi, args.profile)
     launches = {"train": phase_train(ts, cfg, tcfg, corpus, args.seed,
                                      args.profile)}
     with tempfile.TemporaryDirectory() as workdir:

@@ -1,13 +1,14 @@
 """Command line of the port: `python -m gifgan_tpu_torch <command>`.
 
-The commands `train-dcgan`, `train-vid`, `sample-wall`, `quantize-export`,
-`track`, `invert`, `z-extract`, `make-paths`, `derive-paths` and
-`visualize`, with the flags of the JAX package's (gifgan_tpu/cli.py) plus
-`--device`: each runs on the CUDA card unless `--device cpu` is given
-(`make-paths` and `derive-paths` are numpy only). Not here yet: the mesh
-flags (`--data-parallel`, `--fsdp*`, `--tensor-parallel`,
-`--seq-parallel`). `invert` and `z-extract` write GIFs where the JAX
-package writes mp4s, and `invert` reads its images with cv2.
+The commands `train-dcgan`, `train-vid`, `train-recurrent`, `sample-wall`,
+`quantize-export`, `track`, `invert`, `z-extract`, `make-paths`,
+`derive-paths` and `visualize`, with the flags of the JAX package's
+(gifgan_tpu/cli.py) plus `--device`: each runs on the CUDA card unless
+`--device cpu` is given (`make-paths` and `derive-paths` are numpy only).
+Not here yet: the mesh flags (`--data-parallel`, `--fsdp*`,
+`--tensor-parallel`, `--seq-parallel`). `invert`, `z-extract` and
+`train-recurrent` write GIFs where the JAX package writes mp4s, and
+`invert` reads its images with cv2.
 """
 
 from __future__ import annotations
@@ -204,6 +205,52 @@ def cmd_train_vid(args) -> None:
                 yield batch.reshape(-1, *batch.shape[2:])
 
     loops.train_vid_dcgan(clips_iter, cfg, _train_cfg(args), **kw)
+
+
+def cmd_train_recurrent(args) -> None:
+    """The JAX command's two quirks are kept: it builds the config without
+    --compute-dtype (float32 always), and the host path's batch factory
+    takes no epoch seed, so every epoch shuffles alike."""
+    from gifgan_tpu_torch.core.config import RecurrentImageConfig
+    from gifgan_tpu_torch.data.loader import batches_from_array
+    from gifgan_tpu_torch.train import loops
+
+    cfg = RecurrentImageConfig(
+        image_size=args.output_size, c_dim=args.c_dim,
+        seq_length=args.vid_length, base_filters=args.gf_dim,
+        lstm_units=args.lstm_units, num_lstm_layers=args.lstm_layers,
+        lstm_dropout=args.lstm_dropout,
+        share_disc_conv=args.share_disc_conv,
+        pixel_loss_scalar=args.pixel_loss_scalar,
+        residual_prediction=args.residual_prediction,
+        adversarial_after_steps=args.adversarial_after_steps,
+        adversarial_loss_scalar=args.adversarial_loss_scalar)
+
+    if args.dataset == "synthetic":
+        from gifgan_tpu_torch.data.synthetic import synthetic_clips
+
+        clips = synthetic_clips(args.dataset_size,
+                                length=cfg.seq_length + 1,
+                                size=cfg.image_size, channels=cfg.c_dim)
+    else:
+        from gifgan_tpu_torch.data.video import decode_clip_batch
+
+        files = sorted(os.path.join(args.dataset, f)
+                       for f in os.listdir(args.dataset)
+                       if f.endswith((".mp4", ".avi")))
+        clips = decode_clip_batch(files, cfg.seq_length + 1,
+                                  cfg.image_size, strict=False)
+    kw = dict(resume=not args.no_resume, steps_limit=args.steps_limit,
+              device=args.device)
+    if args.device_corpus:
+        loops.train_recurrent(None, cfg, _train_cfg(args), clips_u8=clips,
+                              **kw)
+        return
+    clips = clips.astype(np.float32) / 255.0
+    loops.train_recurrent(
+        lambda: batches_from_array(clips, args.batch_size, shuffle=True,
+                                   seed=args.seed),
+        cfg, _train_cfg(args), **kw)
 
 
 def _vid_sample_fn(args):
@@ -522,6 +569,34 @@ def build_parser() -> argparse.ArgumentParser:
                         "(train/controller.py): per-chunk d_loss drives the "
                         "noise and D-lr knobs")
     p.set_defaults(fn=cmd_train_vid)
+
+    p = sub.add_parser("train-recurrent",
+                       help="train the frame-conditioned recurrent GAN")
+    _add_dcgan_args(p)
+    _add_train_args(p, batch=40)
+    p.add_argument("--dataset", default="synthetic")
+    p.add_argument("--dataset-size", type=int, default=256)
+    p.add_argument("--vid-length", type=int, default=16)
+    p.add_argument("--lstm-units", type=int, default=100)
+    p.add_argument("--lstm-layers", type=int, default=1)
+    p.add_argument("--lstm-dropout", type=float, default=0.0)
+    p.add_argument("--share-disc-conv", action="store_true")
+    p.add_argument("--pixel-loss-scalar", type=float, default=0.0,
+                   help="L1 next-frame term added to the adversarial G loss "
+                        "(deviation from the reference; 0 = reference loss)")
+    p.add_argument("--residual-prediction", action="store_true",
+                   help="predict the frame delta (deviation; see config)")
+    p.add_argument("--adversarial-after-steps", type=int, default=0,
+                   help="pixel-only G warm-up until this step (deviation)")
+    p.add_argument("--adversarial-loss-scalar", type=float, default=1.0,
+                   help="weight on G's adversarial term once active "
+                        "(deviation; the reference hard-codes 1.0)")
+    p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--device-corpus", action="store_true",
+                   help="upload the uint8 clip corpus to the card once and "
+                        "sample each batch there in [0, 1] (the take "
+                        "gather: K1 bakes [-1, 1]); the host ships ids")
+    p.set_defaults(fn=cmd_train_recurrent)
 
     p = sub.add_parser("sample-wall", help="continuous GIF sampler")
     p.add_argument("--checkpoint", required=True,

@@ -8,11 +8,13 @@ flattened in a test and a run directory's `arrays.npz`.
 
 What changes on the way in (`from_jax_flat`); `to_jax_flat` undoes it:
 
-- conv2d weights  HWIO  -> OIHW (F.conv2d);
+- every 4-D weight by its rank, whatever its layer's name (the recurrent
+  GAN's `enc*`/`dec*` and PredNet's `lstm*`/`ahat*`/`up*` too; their 2-D
+  LSTM namesakes stay `(in, out)`): conv2d weights HWIO -> OIHW
+  (F.conv2d), deconv weights, TF conv2d_transpose `[h, w, out, in]` ->
+  `(in, out, h, w)` (F.conv_transpose2d) — one axis order; a deconv's is
+  the kernel of the forward conv being transposed, so no spatial flip;
 - conv3d weights  DHWIO -> OIDHW (F.conv3d);
-- deconv weights, TF conv2d_transpose `[h, w, out, in]` -> `(in, out, h, w)`
-  (F.conv_transpose2d); both are the kernel of the forward conv being
-  transposed, so no spatial flip;
 - linear weights stay `(in, out)`: the port's layers take NHWC / NDHWC
   activations at their boundaries, so every flatten before a linear
   (dcgan h3_lin, vid-D h4_lin) and the h0_lin -> (s16, s16, 8gf) reshape
@@ -42,29 +44,23 @@ import torch
 from gifgan_tpu_torch import resolve_device
 from gifgan_tpu_torch.core.tree import flatten, unflatten
 
-# layout name -> permutation from the JAX layout to the port's
-_TO_PORT = {
-    "conv2d": (3, 2, 0, 1),      # HWIO -> OIHW
-    "conv3d": (4, 3, 0, 1, 2),   # DHWIO -> OIDHW
-    "deconv": (3, 2, 0, 1),      # [h, w, out, in] -> (in, out, h, w)
-}
+# rank of a weight leaf -> its permutation from the JAX layout to the
+# port's: HWIO -> OIHW (F.conv2d) and TF's [h, w, out, in] -> (in, out, h,
+# w) (F.conv_transpose2d) are the same axis order; DHWIO -> OIDHW
+_TO_PORT = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 _OPT_JAX = re.compile(r"^(opt_[^/]+)/0/")
 _OPT_PORT = re.compile(r"^(opt_[^/]+)/")
 
 
-def _layout(key: str, ndim: int):
-    """Which weight layout a leaf has, from its layer name and rank."""
+def _perm(key: str, ndim: int):
+    """The permutation a leaf takes on the way in, None for none: every
+    4-D weight (`w`, or an int8 `wq`) is a conv or a transpose conv, a
+    5-D one a conv3d; 2-D linear and LSTM weights and every other leaf
+    cross as they are. The rank decides, not the layer's name."""
     parts = key.split("/")
     if parts[-1] not in ("w", "wq") or len(parts) < 2:
         return None
-    layer = parts[-2]
-    if "deconv" in layer and ndim == 4:
-        return "deconv"
-    if "conv" in layer and ndim == 4:
-        return "conv2d"
-    if "conv" in layer and ndim == 5:
-        return "conv3d"
-    return None
+    return _TO_PORT.get(ndim)
 
 
 def from_jax_flat(flat: Dict[str, np.ndarray], device=None) -> Dict[str, Any]:
@@ -73,9 +69,9 @@ def from_jax_flat(flat: Dict[str, np.ndarray], device=None) -> Dict[str, Any]:
     out = {}
     for key, arr in flat.items():
         arr = np.asarray(arr)
-        lay = _layout(key, arr.ndim)
-        if lay is not None:
-            arr = arr.transpose(_TO_PORT[lay])
+        perm = _perm(key, arr.ndim)
+        if perm is not None:
+            arr = arr.transpose(perm)
         # np.array, not ascontiguousarray: that one makes 0-d arrays 1-d
         out[_OPT_JAX.sub(r"\1/", key)] = torch.tensor(
             np.array(arr, order="C"), device=device)
@@ -89,9 +85,9 @@ def to_jax_flat(tree: Any) -> Dict[str, np.ndarray]:
     for key, leaf in flatten(tree).items():
         arr = leaf.detach().cpu().numpy() if isinstance(
             leaf, torch.Tensor) else np.asarray(leaf)
-        lay = _layout(key, arr.ndim)
-        if lay is not None:
-            arr = arr.transpose(np.argsort(_TO_PORT[lay]))
+        perm = _perm(key, arr.ndim)
+        if perm is not None:
+            arr = arr.transpose(np.argsort(perm))
         out[_OPT_PORT.sub(r"\1/0/", key)] = np.array(arr, order="C")
     return out
 

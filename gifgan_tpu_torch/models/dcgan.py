@@ -1,4 +1,5 @@
-"""Image DCGAN (gifgan_tpu/models/dcgan.py:1-151), unconditional variant.
+"""Image DCGAN (gifgan_tpu/models/dcgan.py): the unconditional nets, and at
+the end the label-conditioned (MNIST) pair.
 
 Generator: z -> linear -> (s/16, s/16, 8gf) -> BN+ReLU -> four 5x5/2
 deconvs (BN+ReLU on the first three) -> tanh, NHWC. Discriminator: four
@@ -133,3 +134,97 @@ def sample(params, state, z: Tensor, cfg: DCGANConfig) -> Tensor:
         x, _ = generator(params["generator"], state["generator"], z, cfg,
                          train=False)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Conditional (y-label) variant, the MNIST configuration
+# (gifgan_tpu/models/dcgan.py:160-255): the label is concatenated onto the
+# latent and onto the feature maps
+# ---------------------------------------------------------------------------
+
+def conv_cond_concat(x: Tensor, y: Tensor) -> Tensor:
+    """(B, h, w, c) feature map + (B, y_dim) label as constant channels."""
+    b, h, w, _ = x.shape
+    yb = y[:, None, None, :].expand(b, h, w, y.shape[-1])
+    return torch.cat([x, yb.to(x.dtype)], dim=-1)
+
+
+def init_generator_cond(gen: torch.Generator, cfg: DCGANConfig, y_dim: int,
+                        gfc_dim: int = 1024) -> Tuple[Dict, Dict]:
+    """(params, BN state) on the CPU, drawn from the CPU generator `gen`."""
+    s4, gf = cfg.output_size // 4, cfg.gf_dim
+    params = {
+        "h0_lin": nn.linear_init(gen, cfg.z_dim + y_dim, gfc_dim),
+        "h1_lin": nn.linear_init(gen, gfc_dim + y_dim, gf * 2 * s4 * s4),
+        "h2_deconv": nn.deconv2d_init(gen, gf * 2 + y_dim, gf * 2),
+        "h3_deconv": nn.deconv2d_init(gen, gf * 2 + y_dim, cfg.c_dim),
+    }
+    state = {}
+    for name, ch in (("bn0", gfc_dim), ("bn1", gf * 2 * s4 * s4),
+                     ("bn2", gf * 2)):
+        params[name], state[name] = nn.batch_norm_init(ch)
+    return params, state
+
+
+def generator_cond(params, state, z: Tensor, y: Tensor, cfg: DCGANConfig,
+                   train: bool) -> Tuple[Tensor, Dict]:
+    """(z, one-hot y) -> image (B, s, s, c) float32 in [0, 1] (sigmoid;
+    MNIST is stored in [0, 1]); new BN state. The h1_lin output becomes
+    (s/4, s/4, 2gf) in NHWC order, as the JAX package's."""
+    dtype = nn.torch_dtype(cfg.compute_dtype)
+    s4, gf = cfg.output_size // 4, cfg.gf_dim
+    new_state = {}
+    zy = torch.cat([z, y], dim=1).to(dtype)
+    h, new_state["bn0"] = nn.batch_norm(
+        params["bn0"], state["bn0"],
+        nn.linear(params["h0_lin"], zy, dtype=dtype), train)
+    h = torch.cat([torch.relu(h), y.to(h.dtype)], dim=1)
+    h, new_state["bn1"] = nn.batch_norm(
+        params["bn1"], state["bn1"],
+        nn.linear(params["h1_lin"], h, dtype=dtype), train)
+    h = conv_cond_concat(torch.relu(h).reshape(-1, s4, s4, gf * 2), y)
+    h, new_state["bn2"] = nn.batch_norm(
+        params["bn2"], state["bn2"],
+        nn.deconv2d(params["h2_deconv"], h, dtype=dtype), train)
+    h = conv_cond_concat(torch.relu(h), y)
+    h = nn.deconv2d(params["h3_deconv"], h, dtype=dtype)
+    return torch.sigmoid(h.float()), new_state
+
+
+def init_discriminator_cond(gen: torch.Generator, cfg: DCGANConfig,
+                            y_dim: int, dfc_dim: int = 1024
+                            ) -> Tuple[Dict, Dict]:
+    s4, df = cfg.output_size // 4, cfg.df_dim
+    c1 = cfg.c_dim + y_dim
+    params = {
+        "h0_conv": nn.conv2d_init(gen, cfg.c_dim + y_dim, c1),
+        "h1_conv": nn.conv2d_init(gen, c1 + y_dim, df + y_dim),
+        "h2_lin": nn.linear_init(gen, s4 * s4 * (df + y_dim) + y_dim,
+                                 dfc_dim),
+        "h3_lin": nn.linear_init(gen, dfc_dim + y_dim, 1),
+    }
+    state = {}
+    for name, ch in (("bn1", df + y_dim), ("bn2", dfc_dim)):
+        params[name], state[name] = nn.batch_norm_init(ch)
+    return params, state
+
+
+def discriminator_cond(params, state, x: Tensor, y: Tensor,
+                       cfg: DCGANConfig, train: bool) -> Tuple[Tensor, Dict]:
+    """(image (B, s, s, c), one-hot y) -> (logits (B, 1) float32, new BN
+    state)."""
+    dtype = nn.torch_dtype(cfg.compute_dtype)
+    new_state = {}
+    h = conv_cond_concat(x.to(dtype), y)
+    h = conv_cond_concat(nn.lrelu(nn.conv2d(params["h0_conv"], h,
+                                            dtype=dtype)), y)
+    h, new_state["bn1"] = nn.batch_norm(
+        params["bn1"], state["bn1"],
+        nn.conv2d(params["h1_conv"], h, dtype=dtype), train)
+    h = nn.lrelu(h).reshape(h.shape[0], -1)
+    h = torch.cat([h, y.to(h.dtype)], dim=1)
+    h, new_state["bn2"] = nn.batch_norm(
+        params["bn2"], state["bn2"],
+        nn.linear(params["h2_lin"], h, dtype=dtype), train)
+    h = torch.cat([nn.lrelu(h), y.to(h.dtype)], dim=1)
+    return nn.linear(params["h3_lin"], h, dtype=dtype).float(), new_state

@@ -62,6 +62,13 @@ def _taps(rows: tuple, device: torch.device) -> Tensor:
     return torch.tensor(rows, device=device)
 
 
+def _bias(params, dtype) -> Optional[Tensor]:
+    """The layer's bias in `dtype`, or None for a bias-free layer (a dict
+    without "b": the recurrent GAN's convs and deconvs have none)."""
+    b = params.get("b")
+    return None if b is None else b.to(dtype)
+
+
 def _nchw(x: Tensor) -> Tensor:
     return x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
 
@@ -81,8 +88,9 @@ def conv2d_init(gen, in_ch: int, out_ch: int, k: int = 5, stddev=0.02):
 
 def conv2d(params, x: Tensor, stride: int = 2, dtype=None,
            impl: Optional[str] = None) -> Tensor:
-    """NHWC TF-SAME conv. impl="s2d" takes the space-to-depth form for
-    5x5/2 on even inputs (same function, other accumulation order)."""
+    """NHWC TF-SAME conv; a `params` without "b" has no bias. impl="s2d"
+    takes the space-to-depth form for 5x5/2 on even inputs (same function,
+    other accumulation order)."""
     dtype = dtype or x.dtype
     w = params["w"].to(dtype)
     k = w.shape[-1]
@@ -90,7 +98,7 @@ def conv2d(params, x: Tensor, stride: int = 2, dtype=None,
             and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
         return _conv2d_s2d(params, x, dtype)
     xc = F.pad(_nchw(x.to(dtype)), _same_pads(x.shape[1:3], k, stride))
-    return _nhwc(F.conv2d(xc, w, params["b"].to(dtype), stride=stride))
+    return _nhwc(F.conv2d(xc, w, _bias(params, dtype), stride=stride))
 
 
 def _conv2d_s2d(params, x: Tensor, dtype) -> Tensor:
@@ -143,7 +151,8 @@ def deconv2d_init(gen, in_ch: int, out_ch: int, k: int = 5, stddev=0.02):
 
 def deconv2d(params, x: Tensor, stride: int = 2, dtype=None,
              impl: Optional[str] = None) -> Tensor:
-    """Exact tf.nn.conv2d_transpose(..., padding='SAME'): (m, m) -> (sm, sm).
+    """Exact tf.nn.conv2d_transpose(..., padding='SAME'): (m, m) -> (sm, sm);
+    a `params` without "b" has no bias.
 
     The gradient-of-conv form pads the dilated input by (k-1-pl, k-1-pr),
     with (pl, pr) the forward SAME pads: (3, 2) for 5x5/2.
@@ -160,7 +169,7 @@ def deconv2d(params, x: Tensor, stride: int = 2, dtype=None,
     total = max(k - stride, 0)
     pl = total // 2
     crop = (total - pl) - pl
-    y = F.conv_transpose2d(_nchw(x.to(dtype)), w, params["b"].to(dtype),
+    y = F.conv_transpose2d(_nchw(x.to(dtype)), w, _bias(params, dtype),
                            stride=stride, padding=pl)
     if crop:
         y = y[:, :, :-crop, :-crop]

@@ -1,4 +1,5 @@
-"""Image-DCGAN training (gifgan_tpu/train/gan.py:29-150, :238-275) and the
+"""Image-DCGAN training (gifgan_tpu/train/gan.py: the unconditional step
+:29-150, :238-275, and the conditional (MNIST) one :153-236) and the
 optimizer of every GAN step (make_optimizer, :37-45).
 
 One batch is one D update then `gen_updates` G updates, with the
@@ -283,3 +284,95 @@ def train_chunk_ids(ts: TrainState, ids_stack: Tensor, z_stack: Tensor, gen,
                            tcfg)
         ms.append(m)
     return ts, _stack(ms)
+
+
+# ---------------------------------------------------------------------------
+# conditional (MNIST) DCGAN (gifgan_tpu/train/gan.py:153-236)
+# ---------------------------------------------------------------------------
+
+class CondTrainState(TrainState):
+    """TrainState of the label-conditioned nets (the same fields and
+    checkpoint keys)."""
+    __slots__ = ()
+
+
+def init_cond_train_state(gen: torch.Generator, cfg: DCGANConfig,
+                          y_dim: int, tcfg: TrainConfig,
+                          device=None) -> CondTrainState:
+    """Fresh state on `device`; weights drawn on the CPU from `gen`."""
+    device = resolve_device(device)
+    gp, gs = dcgan.init_generator_cond(gen, cfg, y_dim)
+    dp, ds = dcgan.init_discriminator_cond(gen, cfg, y_dim)
+    params = dcgan.to_device({"generator": gp, "discriminator": dp}, device)
+    opt = make_optimizer(tcfg)
+    return CondTrainState(
+        params=params,
+        state=dcgan.to_device({"generator": gs, "discriminator": ds}, device),
+        opt_g=opt.init(params["generator"]),
+        opt_d=opt.init(params["discriminator"]),
+        step=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def cond_train_step(ts: CondTrainState, images: Tensor, y: Tensor,
+                    z: Tensor, gen: Optional[torch.Generator],
+                    cfg: DCGANConfig, tcfg: TrainConfig,
+                    noise: Optional[List[Tensor]] = None,
+                    ) -> Tuple[CondTrainState, Dict]:
+    """`disc_updates` D updates then `gen_updates` G updates, images in
+    [0, 1] and one-hot y. Instance noise (cfg.noise_std) goes on the real
+    images only, drawn from `gen` (None draws none); `noise` passes one
+    additive term per D update instead (a test's JAX draws). D's BN state
+    chains real -> fake; D takes tcfg.d_learning_rate when set."""
+    opt_g, opt_d = make_optimizer(tcfg, "g"), make_optimizer(tcfg, "d")
+    metrics = {}
+    for u in range(tcfg.disc_updates):
+        noisy = (images + noise[u] if noise is not None
+                 else nn.add_noise(gen, images, cfg.noise_std))
+        with torch.no_grad():            # D never needs gradients through G
+            fake, gen_bn = dcgan.generator_cond(
+                ts.params["generator"], ts.state["generator"], z, y, cfg,
+                train=True)
+        keys, leaves, dp = _differentiable(ts.params["discriminator"])
+        with torch.enable_grad():
+            lr_, ds1 = dcgan.discriminator_cond(
+                dp, ts.state["discriminator"], noisy, y, cfg, train=True)
+            lf_, ds2 = dcgan.discriminator_cond(dp, ds1, fake, y, cfg,
+                                                train=True)
+            loss_r = nn.sigmoid_ce(lr_, torch.ones_like(lr_))
+            loss_f = nn.sigmoid_ce(lf_, torch.zeros_like(lf_))
+            d_loss = loss_r + loss_f
+            grads = _grads(d_loss, keys, leaves)
+        updates, od = opt_d.update(grads, ts.opt_d)
+        ts = ts._replace(
+            params=dict(ts.params, discriminator=apply_updates(
+                ts.params["discriminator"], updates)),
+            state={"generator": gen_bn, "discriminator": ds2}, opt_d=od)
+        metrics.update(d_loss=d_loss.detach(), d_loss_real=loss_r.detach(),
+                       d_loss_fake=loss_f.detach())
+    for _ in range(tcfg.gen_updates):
+        keys, leaves, gp = _differentiable(ts.params["generator"])
+        with torch.enable_grad():
+            fake, gen_bn = dcgan.generator_cond(
+                gp, ts.state["generator"], z, y, cfg, train=True)
+            logits, disc_bn = dcgan.discriminator_cond(
+                ts.params["discriminator"], ts.state["discriminator"], fake,
+                y, cfg, train=True)
+            g_loss = nn.sigmoid_ce(logits, torch.ones_like(logits))
+            grads = _grads(g_loss, keys, leaves)
+        updates, og = opt_g.update(grads, ts.opt_g)
+        ts = ts._replace(
+            params=dict(ts.params, generator=apply_updates(
+                ts.params["generator"], updates)),
+            state={"generator": gen_bn, "discriminator": disc_bn}, opt_g=og)
+        metrics["g_loss"] = g_loss.detach()
+    return ts._replace(step=ts.step + 1), metrics
+
+
+def cond_sample_step(ts: CondTrainState, z: Tensor, y: Tensor,
+                     cfg: DCGANConfig) -> Tensor:
+    """Inference-mode samples (B, s, s, c) in [0, 1] for labels y."""
+    with torch.no_grad():
+        x, _ = dcgan.generator_cond(ts.params["generator"],
+                                    ts.state["generator"], z, y, cfg,
+                                    train=False)
+    return x

@@ -29,8 +29,9 @@ import torch
 
 from gifgan_tpu_torch import resolve_device
 from gifgan_tpu_torch.core import checkpoint as ckpt
-from gifgan_tpu_torch.core.config import (DCGANConfig, TrainConfig,
-                                          VidGANConfig, save_config)
+from gifgan_tpu_torch.core.config import (DCGANConfig, RecurrentImageConfig,
+                                          TrainConfig, VidGANConfig,
+                                          save_config)
 from gifgan_tpu_torch.core.metrics import MetricsLogger
 from gifgan_tpu_torch.core.rng import PRNGSequence, uniform_z
 from gifgan_tpu_torch.data.device import DeviceCorpus
@@ -39,6 +40,7 @@ from gifgan_tpu_torch.data.video import write_gif
 from gifgan_tpu_torch.ops.image import (denorm_u8, inverse_transform,
                                         merge_grid, to_uint8, write_png)
 from gifgan_tpu_torch.train import gan
+from gifgan_tpu_torch.train import recurrent as rtrain
 from gifgan_tpu_torch.train import vid as vid_train
 from gifgan_tpu_torch.train.controller import CollapseController
 
@@ -147,14 +149,14 @@ def _id_batches(n: int, batch_size: int, epoch_seed: int):
 
 
 def _corpus(u8: np.ndarray, item_shape: tuple, what: str, batch_size: int,
-            device) -> DeviceCorpus:
-    """A DeviceCorpus of (N, *item_shape) uint8, N >= batch_size.
-    `what` names the argument and the shape, e.g. "clips_u8 (N,
-    vid_length, s, s, c)"."""
+            device, **kw) -> DeviceCorpus:
+    """A DeviceCorpus of (N, *item_shape) uint8, N >= batch_size; `kw` go
+    to DeviceCorpus. `what` names the argument and the shape, e.g.
+    "clips_u8 (N, vid_length, s, s, c)"."""
     if u8.ndim != len(item_shape) + 1 or u8.shape[1:] != item_shape:
         raise ValueError(f"{what} must have shape (N,) + {item_shape}, got "
                          f"{u8.shape}")
-    corpus = DeviceCorpus(np.ascontiguousarray(u8), device=device)
+    corpus = DeviceCorpus(np.ascontiguousarray(u8), device=device, **kw)
     if corpus.n < batch_size:
         raise ValueError(f"{what.split()[0]} has {corpus.n} items < "
                          f"batch_size {batch_size}")
@@ -162,9 +164,10 @@ def _corpus(u8: np.ndarray, item_shape: tuple, what: str, batch_size: int,
 
 
 class _Loop:
-    """What both loops share: run dir, stream, state restore, the pending
+    """What the loops share: run dir, stream, state restore, the pending
     chunk, the epoch walk, cadence and the final checkpoint. `step_chunk`
-    trains the pending chunk; `on_chunk` logs it and writes samples."""
+    trains the pending chunk; `on_chunk` logs it and writes samples. A
+    z_dim of None draws no z (the recurrent GAN has no latent)."""
 
     def __init__(self, cfg, tcfg: TrainConfig, init_fn: Callable,
                  resume: bool, device):
@@ -199,7 +202,7 @@ class _Loop:
             if not pending:
                 return
             prev, k = self.step, len(pending)
-            z = torch.stack(pending_z)
+            z = torch.stack(pending_z) if pending_z else None
             self.ts, metrics = step_chunk(self.ts, pending, z,
                                           self.rngs.next())
             pending.clear()
@@ -216,8 +219,9 @@ class _Loop:
                 batches = batches_of_epoch(tcfg.seed + start_step + epoch)
                 try:
                     for batch in batches:
-                        pending_z.append(uniform_z(self.rngs.next(),
-                                                   (batch_len(batch), z_dim)))
+                        if z_dim is not None:
+                            pending_z.append(uniform_z(
+                                self.rngs.next(), (batch_len(batch), z_dim)))
                         pending.append(batch)
                         if len(pending) == chunk:
                             flush()
@@ -378,3 +382,57 @@ def train_vid_dcgan(clips_iter: Optional[Callable[[], Iterator]],
         batch_len = lambda frames: frames.shape[0] // cfg.vid_length
     return loop.run(batches, cfg.z_input_size, batch_len, step_chunk,
                     on_chunk, chunk, steps_limit)
+
+
+def train_recurrent(clips_iter: Optional[Callable[[], Iterator]],
+                    cfg: RecurrentImageConfig, tcfg: TrainConfig,
+                    resume: bool = True, allow_overwrite: bool = False,
+                    steps_limit: Optional[int] = None,
+                    clips_u8: Optional[np.ndarray] = None,
+                    device=None) -> rtrain.RecurrentTrainState:
+    """Train the recurrent_image GAN, one step a batch; returns the final
+    RecurrentTrainState.
+
+    clips_iter: () or (epoch_seed) -> iterator of (B, T+1, s, s, c) float
+    [0, 1] batches. clips_u8: instead, an (N, T+1, s, s, c) uint8 corpus
+    uploaded once and sampled on the device in [0, 1] (DeviceCorpus
+    method "take": the gather kernel bakes the [-1, 1] scale); the host
+    ships ids only. Refuses to reuse a checkpoint directory unless
+    resuming or allow_overwrite. Every sample_every steps a GIF grid of the
+    step's teacher-forced predictions, pred_<step>.gif."""
+    ckpt_dir = os.path.join(tcfg.run_dir, "checkpoints")
+    existing = ckpt.latest_step(ckpt_dir)
+    if existing is not None and not resume and not allow_overwrite:
+        raise RuntimeError(
+            f"checkpoint dir {ckpt_dir} exists (step {existing}); pass "
+            "resume=True or allow_overwrite=True")
+    loop = _Loop(cfg, tcfg, rtrain.init_train_state, resume, device)
+    corpus = None
+    if clips_u8 is not None:
+        s = cfg.image_size
+        corpus = _corpus(clips_u8, (cfg.seq_length + 1, s, s, cfg.c_dim),
+                         "clips_u8 (N, seq_length+1, s, s, c)",
+                         tcfg.batch_size, loop.device, method="take",
+                         out_range="unit")
+    last = {}
+
+    def step_chunk(ts, pending, z, gen):
+        (batch,) = pending
+        clips = (corpus.sample(torch.as_tensor(batch, device=loop.device))
+                 if corpus is not None else batch)
+        last["clips"] = clips
+        return rtrain.train_step(ts, clips, gen, cfg, tcfg)
+
+    def on_chunk(metrics, prev, epoch):
+        loop.log.log(loop.step, metrics)
+        if _crossed(prev, loop.step, tcfg.sample_every):
+            preds = rtrain.predict(loop.ts, last["clips"], cfg)
+            _write_video_grid(preds * 2.0 - 1.0, min(4, preds.shape[0]),
+                              os.path.join(loop.run_dir,
+                                           f"pred_{loop.step:06d}.gif"))
+
+    batches = (
+        (lambda seed: _id_batches(corpus.n, tcfg.batch_size, seed))
+        if corpus is not None else loop.host_batches(clips_iter))
+    return loop.run(batches, None, len, step_chunk, on_chunk, 1,
+                    steps_limit)

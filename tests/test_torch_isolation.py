@@ -32,7 +32,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 56, out.stdout
+    assert int(n) >= 61, out.stdout
     assert bad == "[]", bad
 
 
@@ -50,8 +50,10 @@ def _entry_points():
     from gifgan_tpu_torch.track import detect, haar_device, pipeline
     from gifgan_tpu_torch.track.boxes import Detection
     from gifgan_tpu_torch.core.config import DCGANConfig
+    from gifgan_tpu_torch.core.config import RecurrentImageConfig
     from gifgan_tpu_torch.core.rng import PRNGSequence
-    from gifgan_tpu_torch.train import gan, loops, vid
+    from gifgan_tpu_torch.models import prednet, rnn_prototypes
+    from gifgan_tpu_torch.train import gan, loops, recurrent, vid
 
     frames = np.zeros((4, 48, 48, 3), np.uint8)
     track = [Detection(8, 8, 40, 40, i) for i in range(4)]
@@ -131,6 +133,23 @@ def _entry_points():
             ["visualize", "--checkpoint", "/none", "--out-dir", "/none"]),
         "activation_distances": lambda: activation_distances(
             {}, {}, DCGANConfig(), [frames.astype(np.float32)]),
+        "train_recurrent": lambda: loops.train_recurrent(
+            None, RecurrentImageConfig(), TrainConfig(run_dir="/none")),
+        "cli_train_recurrent": lambda: cli.main(
+            ["train-recurrent", "--run-dir", "/none", "--dataset-size", "1"]),
+        "recurrent_init_train_state": lambda: recurrent.init_train_state(
+            torch.Generator(), RecurrentImageConfig(), TrainConfig()),
+        "init_cond_train_state": lambda: gan.init_cond_train_state(
+            torch.Generator(), DCGANConfig(output_size=28, c_dim=1), 10,
+            TrainConfig()),
+        "prednet_init": lambda: prednet.init(torch.Generator(),
+                                             prednet.PredNetConfig()),
+        "echo_rnn_init": lambda: rnn_prototypes.echo_rnn_init(
+            torch.Generator()),
+        "vector_echo_init": lambda: rnn_prototypes.vector_echo_init(
+            torch.Generator(), 6),
+        "conv_cls_init": lambda: rnn_prototypes.conv_cls_init(
+            torch.Generator()),
     }
 
 
