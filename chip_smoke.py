@@ -119,27 +119,57 @@ Phases, one report line each, any failed check raising:
             K4's largest image is the TRACK_BUCKET crop;
 14. feed    clip_batches_from_files over the track phase's crop GIFs (64
             paths, 16 frames, K2 to 64x64 on the card), then one
-            train_chunk of K = 2 steps at the flagship width on the batches.
+            train_chunk of K = 2 steps at the flagship width on the batches;
+15. dataprep the data-collection tools: scrape --dry-run on keywords.txt and
+            the Scraper over an in-process fake search API (no network);
+            sample-frames over the track phase's 256x256 crop GIFs (5
+            stills a clip at 64 px, K2); video_to_frames on a glyph video
+            (an MJPG avi, OpenCV's own codec) with the device detector (K3);
+            the mp4 probe (mp4_write, mp4_read), bulk-resize and
+            video-to-gif on mp4s where cv2 has the codec, video-to-gif on
+            the avi always; combine-stats over the track and prep stats;
+            process_video on the prep sources with flow_backend "jax" (the
+            gather flow, no K4) against "auto" (K4): boxes within
+            CENTRE_TOL_PX, ms per file for both; the batched gather
+            detector on the detect phase's clips against the host detector
+            by the detect phase's criteria;
+16. eval    the evaluation tools on the workflow's runs: eval-fad at the
+            flagship width (512 synthetic stills against 512 PNGs of the
+            train-dcgan run's generator, batch 256; the FAD of a set
+            against itself under 1e-6; the h2 features card vs CPU, float32
+            with TF32 off, within FEATURE_TOL); eval-track-rate with the
+            seeded cascade over 64 of the sample-wall run's GIFs and 16
+            glyph GIFs (64x64, upscaled 2x): no clip errored, the glyph
+            set's rate at least 0.75, K3 and K4 launched; face-detect
+            --best --biggest --query on a 360x480 glyph frame (K3, the best
+            box is the glyph); survey-pairs on an export_survey_samples
+            directory of the flagship sampler's videos and a stride
+            control; QualityEarlyStop fed the phase's rates and FAD, its
+            log replayed into an equal state.
 
 The launch counts are zeroed just before each of serve, the three
 workflow commands, serve_int8, invert and recurrent (no kernel of the four
 is on their paths, and they report their counts), train, prep, track and
-feed and read just after. Then a `kernels` JSON line, the nvidia-smi
-line, and as the last line {"ok": true, "device": {...}}. Without CUDA it
+feed and read just after, and so around each step of dataprep and eval
+that launches a kernel (the kernels line gives them per step). Then a
+`kernels` JSON line, the nvidia-smi line, and as the last line {"ok":
+true, "device": {...}}. Without CUDA it
 exits 2 and prints no result. --profile adds a torch.profiler table of one
 video training step (train), one image-DCGAN step (workflow), one
 request's int8 and bf16 float sample (serve_int8), one inversion step
-(invert) and one full-width recurrent step (recurrent), and cProfile's
-table of
-the track phase's dispatcher thread.
+(invert), one full-width recurrent step (recurrent), 16 frames through
+the gather flow (dataprep) and the track rate of 2 glyph clips (eval), and
+cProfile's table of the track phase's dispatcher thread.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import cProfile
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -164,8 +194,13 @@ from gifgan_tpu_torch.core.config import (DCGANConfig, InvertConfig,
                                           load_config)
 from gifgan_tpu_torch.data.device import DeviceCorpus
 from gifgan_tpu_torch.data.loader import clip_batches_from_files
-from gifgan_tpu_torch.data.synthetic import synthetic_clips
+from gifgan_tpu_torch.data import scrape as tscrape
+from gifgan_tpu_torch.data import video as tvideo
+from gifgan_tpu_torch.data.synthetic import synthetic_clips, synthetic_stills
 from gifgan_tpu_torch.data.video import read_gif, write_gif
+from gifgan_tpu_torch.eval import fad as tfad
+from gifgan_tpu_torch.eval import survey as tsurvey
+from gifgan_tpu_torch.eval.track_rate import face_track_rate
 from gifgan_tpu_torch.kernels import _build
 from gifgan_tpu_torch.kernels import flow as kflow
 from gifgan_tpu_torch.kernels.flow_refine import (bilinear_windows, lk_refine,
@@ -191,12 +226,13 @@ from gifgan_tpu_torch.serve.sampler import gif_wall, vid_sample_fn
 from gifgan_tpu_torch.track import pipeline as tpipe
 from gifgan_tpu_torch.track import synthetic_cascade
 from gifgan_tpu_torch.track.boxes import Detection
-from gifgan_tpu_torch.track.haar import NativeHaarDetector
+from gifgan_tpu_torch.track.haar import (BatchedGatherHaarDetector,
+                                         NativeHaarDetector)
 from gifgan_tpu_torch.track.haar_device import (DeviceHaarDetector,
                                                 letterbox_stack)
 from gifgan_tpu_torch.track.pipeline import process_video
 from gifgan_tpu_torch.track.stats import TrackStats
-from gifgan_tpu_torch.train import gan, vid
+from gifgan_tpu_torch.train import early_stop, gan, vid
 from gifgan_tpu_torch.train import recurrent as rtrain
 from gifgan_tpu_torch.train.gan import _differentiable, _grads
 
@@ -257,6 +293,14 @@ REC_WIDTH = dict(image_size=64, c_dim=3, seq_length=16, base_filters=64,
 COND_BATCH, COND_STEPS = 64, 30
 PREDNET_BATCH, PREDNET_LEN, PREDNET_CLIPS, PREDNET_STEPS = 16, 16, 64, 30
 WARM_STEPS, TIMED_STEPS = 2, 5
+# dataprep: the scrape's keywords and fake result page, stills per clip
+SCRAPE_KEYWORDS, SCRAPE_PER_PAGE, SAMPLE_FRAMES = 2, 6, 5
+# eval: FAD images a set (the reference's sets hold thousands) and the
+# command's batch; the wall GIFs and glyph GIFs whose track rate is read
+# (the reference evaluates 250 a variant); exported survey samples a
+# variant; the h2 features' card-vs-CPU tolerance (tests/test_torch_eval.py)
+FAD_IMAGES, FAD_BATCH, FEATURE_TOL = 512, 256, 1e-5
+TRACK_RATE_CLIPS, GLYPH_CLIPS, SURVEY_SAMPLES = 64, 16, 8
 # the H100 SXM data sheet's dense int8 tensor-core rate
 INT8_OPS = 1979e12
 DEVICE = "cuda"
@@ -969,12 +1013,35 @@ def iou(a, b):
     return inter / (a[2] * a[3] + b[2] * b[3] - inter)
 
 
+def detect_agreement(got, want, truth):
+    """The detect phase's criteria over per-clip, per-frame rect arrays
+    (x, y, w, h): (glyph frames, frames whose primary box agrees with the
+    host's (IoU > 0.6), planted glyphs found, noise frames, quiet noise
+    frames)."""
+    primary = lambda r: r[np.argmax(r[:, 2] * r[:, 3])]
+    glyphs = agree = found = quiet = noise = 0
+    for g_clip, w_clip, boxes in zip(got, want, truth):
+        for g, w, box in zip(g_clip, w_clip, boxes):
+            if box is None:
+                noise += 1
+                quiet += len(g) == 0
+                continue
+            glyphs += 1
+            x, y, side = box
+            found += len(g) > 0 and iou(primary(g), (x, y, side, side)) > 0.6
+            agree += (len(g) > 0 and len(w) > 0
+                      and iou(primary(g), primary(w)) > 0.6)
+    return glyphs, agree, found, noise, quiet
+
+
 def phase_detect(xml, seed):
-    """detect_clips on 8 clips of mixed sizes against the host detector."""
+    """detect_clips on 8 clips of mixed sizes against the host detector.
+    Returns [(px, clips, truth, host boxes)] for dataprep's gather
+    detector."""
     rng = np.random.default_rng(seed + 30)
+    sets = []
     dev = DeviceHaarDetector(xml, min_neighbors=3, device=DEVICE)
     host = NativeHaarDetector(xml, min_neighbors=3)
-    primary = lambda r: r[np.argmax(r[:, 2] * r[:, 3])]
     for px in (128, 256):
         clips, truth = [], []
         for c in range(8):
@@ -1001,19 +1068,8 @@ def phase_detect(xml, seed):
         t = time.perf_counter()
         want = [[host.detect_rects(f) for f in c] for c in clips]
         host_ms = (time.perf_counter() - t) * 1e3 / len(clips)
-        glyphs = agree = found = quiet = noise = 0
-        for g_clip, w_clip, boxes in zip(got, want, truth):
-            for g, w, box in zip(g_clip, w_clip, boxes):
-                if box is None:
-                    noise += 1
-                    quiet += len(g) == 0
-                    continue
-                glyphs += 1
-                x, y, side = box
-                found += len(g) > 0 and iou(primary(g), (x, y, side,
-                                                         side)) > 0.6
-                agree += (len(g) > 0 and len(w) > 0
-                          and iou(primary(g), primary(w)) > 0.6)
+        glyphs, agree, found, noise, quiet = detect_agreement(got, want,
+                                                             truth)
         say("detect", px=px, clips=len(clips), frames_per_clip=6,
             glyph_frames=glyphs, agree_with_host=agree, planted_found=found,
             noise_frames=noise, noise_frames_quiet=quiet,
@@ -1025,6 +1081,8 @@ def phase_detect(xml, seed):
               f"on {found}/{glyphs}")
         check(quiet == noise, f"detect {px}: nothing on noise frames")
         check(launches >= 1, "detect went through K3")
+        sets.append((px, clips, truth, want))
+    return sets
 
 
 class Stopwatch:
@@ -2246,6 +2304,8 @@ TRAIN_GROUPS = {"conv_gemm": ("xmma", "gemm", "conv", "cudnn", "wgrad",
                 "gather_k1": ("gather_rows_scaled",)}
 # an int8 request: the _int_mm products; the copies (im2col, pads, dtype
 # casts: PyTorch's direct_copy kernels); the max|x| reductions
+TRACK_GROUPS = {"k3": ("haar_stages",), "k4": ("lk_refine",),
+                "conv": ("conv", "cudnn", "xmma", "gemm")}
 SAMPLE_GROUPS = {"gemm": ("xmma", "gemm", "cutlass", "conv", "cudnn"),
                  "copy_cast": ("copy",), "reduce": ("reduce",)}
 
@@ -2380,6 +2440,7 @@ def phase_prep(seed, workdir):
     reset_counts()
     crop_paths, times, offsets, flow_calls = [], [], [], 0
     stages = np.zeros(3)                 # ms in read_gif, track, write_gif
+    merged = TrackStats()
     for i, (path, boxes) in enumerate(sources):
         t = time.perf_counter()
         frames = read_gif(path)
@@ -2396,6 +2457,7 @@ def phase_prep(seed, workdir):
         stats = TrackStats()
         clips = process_video(frames, detector, cfg, stats)
         t_track = time.perf_counter()
+        merged.update(stats)
         check(len(clips) == 1, f"source {i}: one clip, got {len(clips)} "
                                f"({stats.counters})")
         clip = clips[0]
@@ -2414,6 +2476,8 @@ def phase_prep(seed, workdir):
         offsets.append(max(patch_offset_px(clip[n], boxes[n][2])
                            for n in range(clip.shape[0])))
     launches = read_counts()
+    merged.total_files = SRC_FILES
+    merged.write(os.path.join(workdir, "prep_stats"))
     # every crop is at least BOX px, padded to 224 or more: three levels
     levels = kflow.pyramid_levels(BOX, BOX, cfg.lk_window, cfg.lk_levels)
     check(flow_calls >= SRC_FILES * (cfg.min_frame_count - 1),
@@ -2475,6 +2539,492 @@ def phase_feed(ts, cfg, tcfg, crop_paths, seed):
     return launches
 
 
+
+def cli_out(argv, echo=True):
+    """cli.main(argv) in process; its standard output (echoed unless
+    echo=False)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(argv) == 0, f"{argv[0]} exits 0")
+    out = buf.getvalue()
+    for line in out.splitlines() if echo else ():
+        if line:
+            say("cli", command=argv[0], out=line)
+    return out
+
+
+def mp4_probe(path):
+    """cv2's mp4v writer and reader in the running build: (opened for write,
+    frames read back of 3 written)."""
+    import cv2
+
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25,
+                             (64, 48))
+    opened = writer.isOpened()
+    for i in range(3):
+        writer.write(np.full((48, 64, 3), 40 * i, np.uint8))
+    writer.release()
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.isOpened():
+        ok, _ = cap.read()
+        if not ok:
+            break
+        n += 1
+    cap.release()
+    return opened, n
+
+
+def write_mjpg(path, frames, fps=25.0):
+    """(T, H, W, 3) uint8 RGB -> an MJPG avi through OpenCV's own encoder,
+    which needs no codec library."""
+    import cv2
+
+    h, w = frames.shape[1:3]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), fps,
+                             (w, h))
+    check(writer.isOpened(), "cv2 writes MJPG avi")
+    for f in frames:
+        writer.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+    writer.release()
+
+
+def fixture_fetch(per_page):
+    """An in-process search API and CDN for the scraper (no network): each
+    keyword's first result page lists `per_page` mp4 URLs, later pages none;
+    a media URL serves deterministic bytes."""
+    from urllib.parse import parse_qs, urlparse
+
+    def fetch(url):
+        u = urlparse(url)
+        if u.netloc == "api.giphy.com":
+            q = parse_qs(u.query)
+            offset = int(q["offset"][0])
+            if offset >= per_page:
+                return b"{}"
+            items = ",".join(
+                f'{{"mp4":"https://media.giphy.com/media/'
+                f'{q["q"][0].replace(" ", "_")}{offset + i:05d}/giphy.mp4"}}'
+                for i in range(per_page))
+            return ('{"data":[' + items + ']}').encode()
+        return b"clip:" + url.encode()
+
+    return fetch
+
+
+def phase_dataprep(xml, seed, workdir, detect_sets, track_out,
+                   profile=False):
+    """The data-collection tools on the card: scrape (dry run and a fake
+    fetch), sample-frames (K2), video_to_frames with the device detector
+    (K3), the mp4 probe with bulk-resize and video-to-gif, combine-stats,
+    process_video with the gather flow against the device flow (K4), and
+    the batched gather detector against the host detector. `profile`
+    adds a torch.profiler table of 16 frames through the gather flow."""
+    out = {}
+    # scrape: the work plan, then the scraper over a fake fetch
+    keyword_file = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "keywords.txt")
+    plan = json.loads(cli_out(["scrape", "--keywords", keyword_file,
+                               "--out-dir", os.path.join(workdir, "raw"),
+                               "--dry-run"]))
+    keywords = plan["keywords"][:SCRAPE_KEYWORDS]
+    check(plan["dry_run"] and len(keywords) == SCRAPE_KEYWORDS
+          and plan["planned_requests_per_keyword"] == 16,
+          f"scrape --dry-run plan: {plan}")
+    raw = os.path.join(workdir, "raw")
+    stats = tscrape.Scraper(raw, fixture_fetch(SCRAPE_PER_PAGE),
+                            num_threads=2).scrape(keywords)
+    files = sum(len(f) for _, _, f in os.walk(raw))
+    again = tscrape.Scraper(raw, fixture_fetch(SCRAPE_PER_PAGE),
+                            num_threads=2).scrape(keywords)
+    check(stats.new_total == files == SCRAPE_KEYWORDS * SCRAPE_PER_PAGE
+          and stats.errors == 0 and again.new_total == 0,
+          f"scraper: {stats}, {files} files, then {again}")
+    say("dataprep", step="scrape", keywords=len(keywords),
+        planned_requests_per_keyword=plan["planned_requests_per_keyword"],
+        new=stats.new_total, files=files, second_pass_new=again.new_total)
+
+    # sample-frames over the track phase's 256x256 crop GIFs (K2 on each)
+    frames_dir = os.path.join(workdir, "stills")
+    clips = sorted(f for f in os.listdir(track_out) if f.endswith(".gif"))
+    reset_counts()
+    t = time.perf_counter()
+    cli_out(["sample-frames", "--input-directory", track_out,
+             "--output-directory", frames_dir, "--frames-per-video",
+             str(SAMPLE_FRAMES), "--size", str(CLIP_SIZE), "--seed",
+             str(seed)])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / len(clips)
+    out["sample_frames"] = read_counts()
+    pngs = sorted(os.listdir(frames_dir))
+    check(len(pngs) == SAMPLE_FRAMES * len(clips),
+          f"{len(pngs)} stills from {len(clips)} clips")
+    still = cli._stills_u8(argparse.Namespace(dataset=frames_dir,
+                                              dataset_size=0),
+                           DCGANConfig(output_size=CLIP_SIZE))
+    check(still.shape == (len(pngs), CLIP_SIZE, CLIP_SIZE, 3)
+          and still.std() > 5, f"stills read back: {still.shape}")
+    check(out["sample_frames"]["resize_normalize"] == len(clips),
+          f"sample-frames resized each clip by K2: {out['sample_frames']}")
+    say("dataprep", step="sample_frames", clips=len(clips), resize="256->64",
+        stills=len(pngs), ms_per_clip=f"{ms:.1f}",
+        launches=out["sample_frames"])
+
+    # a glyph video (MJPG avi: OpenCV's own codec) through video_to_frames
+    # with the device detector, and through video-to-gif
+    src, boxes = source_clip(seed + 60)
+    vids = os.path.join(workdir, "videos")
+    os.makedirs(vids)
+    write_mjpg(os.path.join(vids, "glyph.avi"), src)
+    det = DeviceHaarDetector(xml, min_neighbors=3, device=DEVICE)
+    reset_counts()
+    t = time.perf_counter()
+    v2f = tvideo.video_to_frames(os.path.join(vids, "glyph.avi"),
+                                 os.path.join(workdir, "faces"), rate=5,
+                                 detector=det, crop_size=BOX)
+    ms = (time.perf_counter() - t) * 1e3
+    out["video_to_frames"] = read_counts()
+    faces = sorted(os.listdir(os.path.join(workdir, "faces")))
+    check(v2f["frames"] == SRC_FRAMES // 5 + 1 and len(faces) == v2f["kept"]
+          and v2f["kept"] * 5 >= v2f["frames"] * 4,
+          f"video_to_frames kept the glyph frames: {v2f}")
+    check(out["video_to_frames"]["haar_stages"] >= v2f["frames"],
+          f"video_to_frames detected on the card: {out['video_to_frames']}")
+    say("dataprep", step="video_to_frames", **v2f, ms=f"{ms:.1f}",
+        launches=out["video_to_frames"])
+
+    # the mp4 codec: bulk-resize and video-to-gif on mp4s where cv2 has it
+    mp4_write, mp4_read = mp4_probe(os.path.join(workdir, "probe.mp4"))
+    mp4 = mp4_write and mp4_read == 3
+    sources = [vids]
+    if mp4:
+        mp4s = os.path.join(workdir, "mp4s")
+        os.makedirs(mp4s)
+        tvideo.encode_mp4(os.path.join(mp4s, "glyph.mp4"), src)
+        tvideo.encode_mp4(os.path.join(mp4s, "short.mp4"), src[:8])
+        sources.append(mp4s)
+        got = json.loads(cli_out(["bulk-resize", "--input-directory", mp4s,
+                                  "--output-directory",
+                                  os.path.join(workdir, "resized"),
+                                  "--width", str(CLIP_SIZE), "--length",
+                                  str(CLIP_LEN)]))
+        check(got == {"written": 1, "skipped_short": 1, "errors": 0},
+              f"bulk-resize: {got}")
+        resized = tvideo.decode_clip(
+            os.path.join(workdir, "resized", "glyph.mp4"), CLIP_LEN, None)
+        check(resized.shape == (CLIP_LEN, CLIP_SIZE, CLIP_SIZE, 3),
+              f"bulk-resize output {resized.shape}")
+    for d in sources:
+        gifs = os.path.join(d, "gifs")
+        cli_out(["video-to-gif", "--input-directory", d,
+                 "--output-directory", gifs])
+        gif = read_gif(os.path.join(gifs, "glyph.gif"))
+        check(gif.shape == src.shape
+              and np.abs(gif.astype(int) - src.astype(int)).mean() < 8,
+              f"video-to-gif of {os.listdir(d)}: {gif.shape}")
+    say("dataprep", step="codecs", mp4_write=mp4_write, mp4_read=mp4_read,
+        bulk_resize="ran" if mp4
+        else "not run: no mp4 codec in this cv2 (the CPU tests gate it)",
+        video_to_gif="avi and mp4" if mp4 else "avi")
+
+    # combine-stats over the track and prep stats
+    text = cli_out(["combine-stats", os.path.join(track_out, "stats.json"),
+                    os.path.join(workdir, "prep_stats", "stats.json"),
+                    "--out-dir", os.path.join(workdir, "combined")],
+                   echo=False)
+    with open(os.path.join(workdir, "combined", "stats.json")) as f:
+        combined = json.load(f)
+    parts = [TrackStats.from_dict(json.load(open(os.path.join(d,
+                                                              "stats.json"))))
+             for d in (track_out, os.path.join(workdir, "prep_stats"))]
+    check(combined["total_files"] == TRACK_FILES + SRC_FILES
+          and combined["counters"]["cnt_final_tracks"]
+          == sum(p.cnt_final_tracks for p in parts) and text,
+          f"combine-stats: {combined['counters']}")
+    say("dataprep", step="combine_stats", files=combined["total_files"],
+        final_tracks=combined["counters"]["cnt_final_tracks"])
+
+    # process_video with the gather flow ("jax") against the device flow
+    # (K4) on the prep phase's sources, one injected detector
+    crops, times = {}, {}
+    for backend in ("auto", "jax"):
+        cfg = TrackConfig(flow_backend=backend)
+        crops[backend], times[backend] = [], []
+        reset_counts()
+        for i in range(SRC_FILES):
+            frames, boxes = source_clip(seed + 10 + i)
+
+            def detector(frame, n, boxes=boxes):
+                if n % 5:
+                    return []
+                x, y, side = boxes[n]
+                return [Detection(x, y, x + side, y + side, n)]
+
+            seen = []
+            real = tpipe.crop_and_resize_tracks
+            tpipe.crop_and_resize_tracks = lambda f, tr, *a, **kw: (
+                seen.append(tr) or real(f, tr, *a, **kw))
+            t = time.perf_counter()
+            try:
+                clips = process_video(frames, detector, cfg, TrackStats())
+            finally:
+                tpipe.crop_and_resize_tracks = real
+            torch.cuda.synchronize()
+            times[backend].append((time.perf_counter() - t) * 1e3)
+            check(len(clips) == 1 and len(seen[0]) == 1,
+                  f"{backend}: one track for source {i}")
+            crops[backend].append(np.array(
+                [[d.x1, d.y1, d.x2, d.y2] for d in seen[0][0]]))
+        out[f"process_video_{backend}"] = read_counts()
+    dev = max(int(np.abs(a - b).max()) if a.shape == b.shape else 10 ** 6
+              for a, b in zip(crops["auto"], crops["jax"]))
+    check(dev <= CENTRE_TOL_PX, f"gather flow's boxes within "
+          f"{CENTRE_TOL_PX} px of the device flow's: {dev}")
+    check(out["process_video_jax"]["lk_refine"] == 0
+          and out["process_video_auto"]["lk_refine"] > 0,
+          f"the gather flow has no K4, the device flow has: {out}")
+    say("dataprep", step="flow_backend_jax", files=SRC_FILES,
+        ms_per_file_jax=",".join(f"{t:.1f}" for t in times["jax"]),
+        ms_per_file_auto_k4=",".join(f"{t:.1f}" for t in times["auto"]),
+        box_max_abs_diff_px=dev, tolerance_px=CENTRE_TOL_PX)
+    if profile:       # a third of a file: the profiler's own cost grows
+        short = TrackConfig(flow_backend="jax", min_frame_count=10,
+                            min_total_detections=3)   # with the launches
+        profile_step("process_video_jax", lambda: process_video(
+            frames[:16], detector, short, TrackStats()), groups=TRACK_GROUPS)
+
+    # the batched gather detector on the detect phase's clips
+    gather = BatchedGatherHaarDetector(xml, min_neighbors=3, device=DEVICE)
+    for px, clips, truth, want in detect_sets:
+        gather.detect_batch(np.stack(clips[0]))            # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = [gather.detect_batch(np.stack(c)) for c in clips]
+        ms = (time.perf_counter() - t) * 1e3 / len(clips)
+        glyphs, agree, found, noise, quiet = detect_agreement(got, want,
+                                                              truth)
+        say("dataprep", step="gather_detector", px=px, clips=len(clips),
+            glyph_frames=glyphs, agree_with_host=agree, planted_found=found,
+            noise_frames=noise, noise_frames_quiet=quiet,
+            device_ms_per_clip=f"{ms:.2f}")
+        check(agree * 6 >= glyphs * 5, f"gather {px}: primary boxes agree "
+              f"with the host detector on {agree}/{glyphs}")
+        check(found * 6 >= glyphs * 5, f"gather {px}: planted glyphs found "
+              f"on {found}/{glyphs}")
+        check(quiet == noise, f"gather {px}: nothing on noise frames")
+    return out
+
+
+def glyph_gif_clip(seed, frames=CLIP_LEN, size=CLIP_SIZE, side=44):
+    """A (frames, size, size, 3) clip of the cascade's glyph drifting over
+    black, as a generated sample that must track."""
+    rng = np.random.default_rng(seed)
+    x0, y0 = (int(v) for v in rng.integers(0, size - side - frames // 2, 2))
+    glyph = np.rint(synthetic_cascade.glyph_image(side)).astype(np.uint8)
+    clip = np.zeros((frames, size, size, 3), np.uint8)
+    for t in range(frames):
+        x, y = x0 + t // 2, y0 + t // 3
+        clip[t, y:y + side, x:x + side] = glyph[..., None]
+    return clip
+
+
+def phase_eval(xml, seed, workdir, ts, cfg, profile=False):
+    """The evaluation tools on the workflow's runs: eval-fad at the flagship
+    width, eval-track-rate over the wall's GIFs and glyph GIFs (K3, K4),
+    face-detect (K3), survey-pairs, and the plateau stop on the phase's own
+    rate and FAD. `profile` adds a torch.profiler table of the track rate
+    of 2 glyph clips."""
+    out = {}
+    img_ckpt = os.path.join(workdir, "img", "checkpoints")
+    icfg, params, state = cli._load_dcgan_from_run(img_ckpt, DEVICE)
+    real_dir, fake_dir = (os.path.join(workdir, d) for d in ("real", "fake"))
+    for d in (real_dir, fake_dir):
+        os.makedirs(d)
+    img_side = icfg.output_size
+    for i, im in enumerate(synthetic_stills(FAD_IMAGES, size=img_side,
+                                            seed=seed + 70)):
+        write_png(os.path.join(real_dir, f"{i:04d}.png"), im)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 71)
+    z = torch.rand(FAD_IMAGES, icfg.z_dim, device=DEVICE, generator=g) * 2 - 1
+    fake = denorm_u8(dcgan.sample(params, state, z, icfg))
+    for i, im in enumerate(fake):
+        write_png(os.path.join(fake_dir, f"{i:04d}.png"), im)
+    argv = ["eval-fad", "--checkpoint", img_ckpt, "--batch-size",
+            str(FAD_BATCH)]
+    t = time.perf_counter()
+    got = json.loads(cli_out(argv + ["--real-dir", real_dir, "--fake-dir",
+                                     fake_dir]))
+    cmd_s = time.perf_counter() - t
+    self_fad = json.loads(cli_out(argv + ["--real-dir", real_dir,
+                                          "--fake-dir", real_dir]))["fad"]
+    check(got["n_real"] == got["n_fake"] == FAD_IMAGES
+          and math.isfinite(got["fad"]) and got["fad"] > 0,
+          f"eval-fad: {got}")
+    check(self_fad < 1e-6, f"FAD of a set against itself: {self_fad}")
+    reals = cli._image_dir_to_batch(real_dir, img_side, icfg.c_dim)
+    pd, sd = params["discriminator"], state["discriminator"]
+    tfad.embed(pd, sd, reals[:FAD_BATCH], icfg, FAD_BATCH, DEVICE)  # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tfad.embed(pd, sd, reals, icfg, FAD_BATCH, DEVICE)
+    torch.cuda.synchronize()
+    embed_ms = (time.perf_counter() - t) * 1e3 * FAD_BATCH / FAD_IMAGES
+    # card vs CPU on one set's features, float32 with TF32 off
+    f32 = dataclasses.replace(icfg, compute_dtype="float32")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = tfad.embed(pd, sd, reals[:FAD_BATCH], f32, FAD_BATCH, DEVICE)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    host = tfad.embed(to_device(pd, "cpu"), to_device(sd, "cpu"),
+                      reals[:FAD_BATCH], f32, FAD_BATCH, "cpu")
+    err = float(np.abs(card - host).max() / np.abs(host).max())
+    check(err <= FEATURE_TOL, f"h2 features card vs CPU: {err} of the "
+          f"largest (tolerance {FEATURE_TOL})")
+    say("eval", step="fad", images=FAD_IMAGES, batch=FAD_BATCH,
+        fad=got["fad"], self_fad=self_fad, command_s=f"{cmd_s:.2f}",
+        extract_ms_per_256=f"{embed_ms:.3f}",
+        features_card_vs_cpu_rel=f"{err:.3g}", tolerance=FEATURE_TOL)
+
+    # eval-track-rate: the wall's GIFs (upscaled 2x) and glyph GIFs
+    wall = os.path.join(workdir, "wall_eval")
+    glyphs = os.path.join(workdir, "glyphs")
+    os.makedirs(wall)
+    os.makedirs(glyphs)
+    src_wall = os.path.join(workdir, "wall")
+    for f in sorted(os.listdir(src_wall), key=lambda n: int(n[:-4]))[
+            :TRACK_RATE_CLIPS]:
+        os.link(os.path.join(src_wall, f), os.path.join(wall, f))
+    for i in range(GLYPH_CLIPS):
+        write_gif(os.path.join(glyphs, f"{i}.gif"), glyph_gif_clip(seed + i))
+    reset_counts()
+    t = time.perf_counter()
+    report = cli_out(["eval-track-rate", "--sample-dirs", wall, glyphs,
+                      "--cascade", xml, "--limit", str(TRACK_RATE_CLIPS),
+                      "--out-dir", os.path.join(workdir, "rates")])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / (TRACK_RATE_CLIPS + GLYPH_CLIPS)
+    out["eval_track_rate"] = read_counts()
+    rates = {}
+    for name, n in (("wall_eval", TRACK_RATE_CLIPS), ("glyphs", GLYPH_CLIPS)):
+        with open(os.path.join(workdir, "rates", f"{name}_results",
+                               "stats.json")) as f:
+            st = json.load(f)
+        check(st["counters"]["cnt_files_errored"] == 0
+              and st["counters"]["cnt_files_processed"] == n
+              and st["total_files"] == n,
+              f"{name}: no clip errored: {st['counters']}")
+        line = [ln for ln in report.splitlines()
+                if ln.startswith(name + ":")][0]
+        tracked, total = (int(v) for v in
+                          line.split()[1].split("/"))
+        rates[name] = tracked / total
+    check(rates["glyphs"] >= 0.75, f"glyph set's track rate: {rates}")
+    check(out["eval_track_rate"]["haar_stages"] > 0
+          and out["eval_track_rate"]["lk_refine"] > 0,
+          f"eval-track-rate went through K3 and K4: {out}")
+    say("eval", step="track_rate", wall_clips=TRACK_RATE_CLIPS,
+        glyph_clips=GLYPH_CLIPS, frames="128x128 (64 upscaled 2x)",
+        rate_wall=rates["wall_eval"], rate_glyphs=rates["glyphs"],
+        ms_per_clip=f"{ms:.1f}", launches=out["eval_track_rate"])
+    if profile:
+        det = DeviceHaarDetector(xml, min_neighbors=2, device=DEVICE)
+        clips = [np.repeat(np.repeat(glyph_gif_clip(seed + i), 2, 1), 2, 2)
+                 for i in range(2)]
+        face_track_rate(clips[:1], det)                   # warm
+        profile_step("eval_track_rate", lambda: face_track_rate(clips, det),
+                     groups=TRACK_GROUPS)
+
+    # face-detect on a 360x480 glyph frame
+    frames, boxes = source_clip(seed + 80)
+    write_png(os.path.join(workdir, "frame.png"), frames[0])
+    x, y, side = boxes[0]
+    write_png(os.path.join(workdir, "query.png"),
+              frames[0][y:y + side, x:x + side])
+    reset_counts()
+    t = time.perf_counter()
+    faces = json.loads(cli_out(["face-detect", "--image",
+                                os.path.join(workdir, "frame.png"),
+                                "--cascade", xml, "--best", "--biggest",
+                                "--query",
+                                os.path.join(workdir, "query.png")]))
+    ms = (time.perf_counter() - t) * 1e3
+    out["face_detect"] = read_counts()
+    best = faces.get("best")
+    check(best is not None and iou((best[0], best[1], best[2] - best[0],
+                                    best[3] - best[1]),
+                                   (x, y, side, side)) > 0.6,
+          f"face-detect's best box is the glyph at {boxes[0]}: {faces}")
+    check(out["face_detect"]["haar_stages"] > 0,
+          f"face-detect went through K3: {out['face_detect']}")
+    say("eval", step="face_detect", frame=f"{SRC_H}x{SRC_W}",
+        faces=len(faces["faces"]), best=best, planted=boxes[0],
+        ms=f"{ms:.1f}", launches=out["face_detect"])
+
+    # survey-pairs on exported samples of the flagship sampler
+    sample = vid_sample_fn(ts, cfg)
+    rng = np.random.default_rng(seed + 90)
+
+    def nested(n):
+        z = rng.uniform(-1, 1, (n, cfg.z_input_size)).astype(np.float32)
+        return denorm_u8(sample(z))
+
+    grids = np.stack([denorm_u8(dcgan.sample(
+        params, state, torch.rand(64, icfg.z_dim, device=DEVICE,
+                                  generator=g) * 2 - 1, icfg)).reshape(
+        8, 8, img_side, img_side, 3).transpose(0, 2, 1, 3, 4).reshape(
+        8 * img_side, 8 * img_side, 3) for _ in range(2)])
+    survey = os.path.join(workdir, "survey")
+    manifest = tsurvey.export_survey_samples(
+        {"nested": nested,
+         "stride": lambda n: tsurvey.stride_control_videos(
+             grids, img_side, cfg.vid_length, n, seed=seed)},
+        survey, samples_per_variant=SURVEY_SAMPLES)
+    cli_out(["survey-pairs", "--sample-dir", survey, "--variant-a", "nested",
+             "--variant-b", "stride", "--seed", str(seed)])
+    with open(os.path.join(survey, "pairs.json")) as f:
+        pairs = json.load(f)
+    with open(os.path.join(survey, "pairs.csv")) as f:
+        rows = f.read().splitlines()
+    check(len(pairs["pairs"]) == SURVEY_SAMPLES == len(rows) - 1
+          and all(len(v) == SURVEY_SAMPLES
+                  for v in manifest["variants"].values()),
+          f"survey-pairs: {len(pairs['pairs'])} pairs, {len(rows)} rows")
+    check(read_gif(os.path.join(survey, manifest["variants"]["nested"][0]))
+          .shape == (cfg.vid_length, img_side, img_side, 3),
+          "survey GIF shape")
+    say("eval", step="survey_pairs", samples_per_variant=SURVEY_SAMPLES,
+        pairs=len(pairs["pairs"]),
+        swaps=sum(p["swap"] for p in pairs["pairs"]))
+
+    # the plateau stop on this phase's own rate and FAD, then its replay
+    policy = early_stop.QualityEarlyStop(early_stop.EarlyStopConfig(
+        patience=2, warmup_evals=2))
+    r_wall, r_glyph, fad = rates["wall_eval"], rates["glyphs"], got["fad"]
+    trace = [(r_wall, fad), (r_glyph, fad), (r_glyph, fad),
+             (r_glyph, self_fad), (r_wall, fad), (r_wall, fad)]
+    log = os.path.join(workdir, "evals.jsonl")
+    events = []
+    with open(log, "w") as f:
+        for i, (rate, fad) in enumerate(trace):
+            ev = policy.observe(rate, fad, chunk=i + 1, step=(i + 1) * 100)
+            events += [ev] if ev else []
+            f.write(json.dumps({"kind": "eval", "chunk": i + 1,
+                                "step": (i + 1) * 100, "rate": rate,
+                                "fad": fad}) + "\n")
+    replayed = early_stop.QualityEarlyStop(policy.config)
+    check(early_stop.replay_eval_log(log, replayed) == events
+          and replayed == policy, "the replay equals the live policy")
+    say("eval", step="early_stop", evals=policy.evals,
+        events=",".join(e["kind"] for e in events), stopped=policy.stopped,
+        best_chunk=policy.best_chunk, replay="equal")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2507,24 +3057,37 @@ def main(argv=None) -> int:
     ts = vid.init_train_state(torch.Generator().manual_seed(args.seed), cfg,
                               tcfg, device="cuda")
     phase_serve(ts, cfg)
-    with tempfile.TemporaryDirectory() as workdir:
-        measured["gather_rows_scaled"]["workflow_launches"] = \
-            phase_workflow(args.seed, workdir, args.profile)
-        phase_serve_int8(ts, cfg, args.seed, workdir,
-                         os.path.join(workdir, "vid", "checkpoints"),
-                         args.profile)
-        phase_invert(args.seed, workdir,
-                     os.path.join(workdir, "img", "checkpoints"), ts, cfg,
-                     smi, args.profile)
-        phase_recurrent(args.seed, workdir, smi, args.profile)
+    # the workflow's runs stay for the eval phase
+    wf_dir = tempfile.TemporaryDirectory()
+    workdir = wf_dir.name
+    measured["gather_rows_scaled"]["workflow_launches"] = \
+        phase_workflow(args.seed, workdir, args.profile)
+    phase_serve_int8(ts, cfg, args.seed, workdir,
+                     os.path.join(workdir, "vid", "checkpoints"),
+                     args.profile)
+    phase_invert(args.seed, workdir,
+                 os.path.join(workdir, "img", "checkpoints"), ts, cfg, smi,
+                 args.profile)
+    phase_recurrent(args.seed, workdir, smi, args.profile)
     launches = {"train": phase_train(ts, cfg, tcfg, corpus, args.seed,
                                      args.profile)}
+    new_paths = {}
     with tempfile.TemporaryDirectory() as workdir:
         _, launches["prep"] = phase_prep(args.seed, workdir)
-        phase_detect(xml, args.seed)
+        detect_sets = phase_detect(xml, args.seed)
         crop_paths, launches["track"] = phase_track(xml, args.seed, workdir,
                                                         args.profile)
         launches["feed"] = phase_feed(ts, cfg, tcfg, crop_paths, args.seed)
+        t = time.perf_counter()
+        new_paths["dataprep"] = phase_dataprep(
+            xml, args.seed, workdir, detect_sets,
+            os.path.join(workdir, "track_out"), args.profile)
+        say("dataprep", seconds=f"{time.perf_counter() - t:.1f}")
+    t = time.perf_counter()
+    new_paths["eval"] = phase_eval(xml, args.seed, wf_dir.name, ts, cfg,
+                                   args.profile)
+    say("eval", seconds=f"{time.perf_counter() - t:.1f}")
+    wf_dir.cleanup()
     cascade_dir.cleanup()
 
     line = []
@@ -2533,6 +3096,9 @@ def main(argv=None) -> int:
                                        "path")}
         row["launches"] = launches[k["path"]][k["name"]]
         row.update(measured[k["name"]])
+        for phase, steps in new_paths.items():
+            row[f"launches_{phase}"] = {step: n[k["name"]]
+                                        for step, n in steps.items()}
         check(row["launches"] > 0, f"{k['name']} launched on the "
                                    f"{k['path']} path")
         line.append(row)

@@ -2,13 +2,15 @@
 
 The commands `train-dcgan`, `train-vid`, `train-recurrent`, `sample-wall`,
 `quantize-export`, `track`, `invert`, `z-extract`, `make-paths`,
-`derive-paths` and `visualize`, with the flags of the JAX package's
-(gifgan_tpu/cli.py) plus `--device`: each runs on the CUDA card unless
-`--device cpu` is given (`make-paths` and `derive-paths` are numpy only).
-Not here yet: the mesh flags (`--data-parallel`, `--fsdp*`,
-`--tensor-parallel`, `--seq-parallel`). `invert`, `z-extract` and
-`train-recurrent` write GIFs where the JAX package writes mp4s, and
-`invert` reads its images with cv2.
+`derive-paths`, `visualize`, `combine-stats`, `scrape`, `bulk-resize`,
+`video-to-gif`, `sample-frames`, `eval-fad`, `eval-track-rate`,
+`face-detect` and `survey-pairs`, with the flags of the JAX package's
+(gifgan_tpu/cli.py), plus `--device` where a command touches the card: it
+runs on the CUDA card unless `--device cpu` is given. Not here yet: the
+mesh flags (`--data-parallel`, `--fsdp*`, `--tensor-parallel`,
+`--seq-parallel`). `invert`, `z-extract` and `train-recurrent` write GIFs
+where the JAX package writes mp4s; `invert`, `face-detect` and the image
+directories of `train-dcgan` and `eval-fad` are read with cv2.
 """
 
 from __future__ import annotations
@@ -85,16 +87,27 @@ def _add_dcgan_args(p):
                         "accumulation order")
 
 
+def _read_rgb(path: str) -> np.ndarray:
+    """An image file -> (H, W, 3) uint8 RGB, read by cv2 (IMREAD_COLOR:
+    alpha dropped, gray repeated to three channels)."""
+    import cv2
+
+    im = cv2.imread(path, cv2.IMREAD_COLOR)
+    if im is None:
+        raise SystemExit(f"cannot read image {path}")
+    return cv2.cvtColor(im, cv2.COLOR_BGR2RGB)
+
+
 def _stills_u8(args, cfg) -> np.ndarray:
     """(N, s, s, c) uint8 training stills: synthetic, or the png/jpg files
-    of a directory (read with imageio, resized with ops/image.py
-    resize_bilinear where they are another size, rounded back to uint8)."""
+    of a directory (read with cv2 as RGB, gray repeated and alpha dropped,
+    then the first c channels; resized with ops/image.py resize_bilinear
+    where they are another size, rounded back to uint8)."""
     if args.dataset == "synthetic":
         from gifgan_tpu_torch.data.synthetic import synthetic_stills
 
         return synthetic_stills(args.dataset_size, size=cfg.output_size,
                                 channels=cfg.c_dim)
-    import imageio.v2 as imageio
     import torch
 
     from gifgan_tpu_torch.ops.image import resize_bilinear
@@ -104,12 +117,7 @@ def _stills_u8(args, cfg) -> np.ndarray:
         if f.lower().endswith((".png", ".jpg", ".jpeg")))
     imgs = []
     for f in files:
-        im = np.asarray(imageio.imread(f))
-        if im.ndim == 2:                       # grayscale -> channel dim
-            im = im[..., None]
-        if im.shape[-1] < cfg.c_dim:           # gray -> repeated channels
-            im = np.repeat(im, cfg.c_dim, axis=-1)
-        im = im[..., :cfg.c_dim]               # drop alpha / extra channels
+        im = _read_rgb(f)[..., :cfg.c_dim]     # gray comes repeated
         if im.shape[:2] != (cfg.output_size,) * 2:
             im = resize_bilinear(torch.from_numpy(im), cfg.output_size,
                                  cfg.output_size).numpy()
@@ -358,15 +366,11 @@ def _read_image(path: str, cfg) -> np.ndarray:
     alpha dropped) and turned to RGB, its first c_dim channels, resized
     where it is another size by ops/image.py resize_bilinear (the JAX
     package's jax.image.resize "linear") and clipped to [0, 255]."""
-    import cv2
     import torch
 
     from gifgan_tpu_torch.ops.image import resize_bilinear
 
-    im = cv2.imread(path, cv2.IMREAD_COLOR)
-    if im is None:
-        raise SystemExit(f"cannot read image {path}")
-    im = cv2.cvtColor(im, cv2.COLOR_BGR2RGB)[..., :cfg.c_dim]
+    im = _read_rgb(path)[..., :cfg.c_dim]
     if im.shape[:2] != (cfg.output_size,) * 2:
         im = np.clip(resize_bilinear(torch.from_numpy(im), cfg.output_size,
                                      cfg.output_size).numpy(), 0, 255)
@@ -521,6 +525,202 @@ def cmd_visualize(args) -> None:
     print(f"wrote {len(paths)} files to {args.out_dir}")
 
 
+def cmd_combine_stats(args) -> None:
+    from gifgan_tpu_torch.track.stats import combine_stats_files
+
+    combined = combine_stats_files(args.stats_files)
+    combined.write(args.out_dir)
+    print(combined.render_text())
+
+
+def cmd_scrape(args) -> None:
+    """Keyword GIF scraper; --dry-run validates the keyword file and the
+    output tree and prints the work plan without touching the network."""
+    import json
+
+    from gifgan_tpu_torch.data.scrape import (Scraper, default_fetch,
+                                              parse_keywords, scan_existing)
+
+    with open(args.keywords) as f:
+        keywords = parse_keywords(f.read())
+    if args.dry_run:
+        existing = scan_existing(args.out_dir)
+        os.makedirs(args.out_dir, exist_ok=True)
+        print(json.dumps({
+            "dry_run": True,
+            "keywords": keywords,
+            "already_downloaded_ids": len(existing),
+            "threads_per_keyword": args.num_threads,
+            "items_per_thread": args.items_per_thread,
+            "planned_requests_per_keyword":
+                args.num_threads * -(-args.items_per_thread // 100),
+        }))
+        return
+    s = Scraper(args.out_dir, default_fetch, api_key=args.api_key,
+                num_threads=args.num_threads,
+                items_per_thread=args.items_per_thread)
+    stats = s.scrape(keywords)
+    print(json.dumps({"new_total": stats.new_total,
+                      "per_keyword": stats.per_keyword,
+                      "errors": stats.errors}))
+
+
+def cmd_bulk_resize(args) -> None:
+    import json
+
+    from gifgan_tpu_torch.data.video import bulk_resize
+
+    print(json.dumps(bulk_resize(args.input_directory, args.output_directory,
+                                 args.width, args.length)))
+
+
+def cmd_video_to_gif(args) -> None:
+    from gifgan_tpu_torch.data.video import video_to_gif
+
+    os.makedirs(args.output_directory, exist_ok=True)
+    for name in sorted(os.listdir(args.input_directory)):
+        if name.endswith((".avi", ".mp4")):
+            out = os.path.join(args.output_directory,
+                               os.path.splitext(name)[0] + ".gif")
+            video_to_gif(os.path.join(args.input_directory, name), out,
+                         fps=args.fps)
+            print("wrote", out)
+
+
+def cmd_sample_frames(args) -> None:
+    """Training stills sampled from videos; a GIF's frames are resized on
+    the card (K2), an mp4's or avi's by cv2."""
+    from gifgan_tpu_torch import resolve_device
+    from gifgan_tpu_torch.data.video import sample_frames_from_video
+    from gifgan_tpu_torch.ops.image import write_png
+
+    device = resolve_device(args.device)
+    os.makedirs(args.output_directory, exist_ok=True)
+    rng = np.random.default_rng(args.seed)
+    count = 0
+    for name in sorted(os.listdir(args.input_directory)):
+        if not name.endswith((".mp4", ".avi", ".gif")):
+            continue
+        frames = sample_frames_from_video(
+            os.path.join(args.input_directory, name),
+            args.frames_per_video, args.size, rng, device=device)
+        for f in frames:
+            write_png(os.path.join(args.output_directory,
+                                   f"{count:07d}.png"), f)
+            count += 1
+    print(f"wrote {count} frames")
+
+
+def _image_dir_to_batch(d: str, size: int, c_dim: int) -> np.ndarray:
+    """Directory of pngs/jpgs -> (N, size, size, c) float images in [-1, 1]
+    (read and resized as _stills_u8 does)."""
+    import types
+
+    args = types.SimpleNamespace(dataset=d, dataset_size=0)
+    cfg = types.SimpleNamespace(output_size=size, c_dim=c_dim)
+    return _stills_u8(args, cfg).astype(np.float32) / 127.5 - 1.0
+
+
+def cmd_eval_fad(args) -> None:
+    """Fréchet Activation Distance between two image sets under a trained
+    image-D's h2 embedding (eval/fad.py), features extracted on the card."""
+    import json
+
+    from gifgan_tpu_torch import resolve_device
+    from gifgan_tpu_torch.eval.fad import fad
+
+    device = resolve_device(args.device)
+    cfg, params, state = _load_dcgan_from_run(args.checkpoint, device)
+    real = _image_dir_to_batch(args.real_dir, cfg.output_size, cfg.c_dim)
+    fake = _image_dir_to_batch(args.fake_dir, cfg.output_size, cfg.c_dim)
+    d = fad(params["discriminator"], state["discriminator"], real, fake,
+            cfg, batch=args.batch_size, device=device)
+    print(json.dumps({"fad": round(d, 6), "n_real": len(real),
+                      "n_fake": len(fake)}))
+
+
+def cmd_eval_track_rate(args) -> None:
+    """The face-track-rate metric over sample directories: the cascade on
+    the card (the device detector, one dispatch a clip, K3) and the
+    stabilizer's device flow (K4)."""
+    from gifgan_tpu_torch import resolve_device
+    from gifgan_tpu_torch.data.video import read_gif
+    from gifgan_tpu_torch.eval import face_track_rate, track_rate_report
+    from gifgan_tpu_torch.eval.track_rate import EVAL_TRACK_CONFIG
+    from gifgan_tpu_torch.track.detect import default_detector
+
+    device = resolve_device(args.device)
+    detector = default_detector(cascade_path=args.cascade, min_neighbors=2,
+                                min_size=20, device=device)
+    results = {}
+    for d in args.sample_dirs:
+        clips = []
+        for f in sorted(os.listdir(d))[:args.limit]:
+            if f.endswith(".gif"):
+                clip = read_gif(os.path.join(d, f))
+                if args.upscale != 1:
+                    clip = np.repeat(np.repeat(clip, args.upscale, 1),
+                                     args.upscale, 2)
+                clips.append(clip)
+        results[os.path.basename(d.rstrip("/"))] = face_track_rate(
+            clips, detector, EVAL_TRACK_CONFIG, device=device)
+    print(track_rate_report(results, out_dir=args.out_dir))
+
+
+def cmd_face_detect(args) -> None:
+    """Single-image face detection with best-face ranking and MSSIM search
+    (the facedetect.py tool: --best / --biggest / --query): the cascade on
+    the card (K3); crops resized to 64x64 by ops/image.py resize_bilinear
+    (antialiased, as jax.image.resize "linear")."""
+    import json
+
+    import torch
+
+    from gifgan_tpu_torch import resolve_device
+    from gifgan_tpu_torch.ops.image import resize_bilinear
+    from gifgan_tpu_torch.track.detect import (default_detector, mssim,
+                                               rank_faces)
+
+    device = resolve_device(args.device)
+    detector = default_detector(cascade_path=args.cascade, min_neighbors=3,
+                                min_size=args.min_size, device=device)
+    frame = _read_rgb(args.image)
+    dets = detector(frame, 0)
+    if not dets:
+        print(json.dumps({"faces": []}))
+        return
+    boxes = np.array([[d.x1, d.y1, d.x2, d.y2] for d in dets])
+    crops = torch.stack([
+        resize_bilinear(torch.as_tensor(
+            frame[d.y1:d.y2 + 1, d.x1:d.x2 + 1]).to(device), 64, 64)
+        for d in dets])
+    out = {"faces": boxes.tolist()}
+    if args.best:
+        scores = rank_faces(crops, boxes, frame.shape)
+        out["best"] = boxes[int(np.argmax(scores))].tolist()
+        out["scores"] = [float(s) for s in scores]
+    if args.biggest:
+        areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+        out["biggest"] = boxes[int(np.argmax(areas))].tolist()
+    if args.query:
+        q64 = resize_bilinear(torch.as_tensor(_read_rgb(args.query)).to(
+            device), 64, 64)
+        sims = mssim(q64[None].expand_as(crops), crops).cpu().numpy()
+        out["most_similar"] = boxes[int(np.argmax(sims))].tolist()
+        out["similarities"] = [float(s) for s in sims]
+    print(json.dumps(out))
+
+
+def cmd_survey_pairs(args) -> None:
+    from gifgan_tpu_torch.eval.survey import make_pair_manifest
+
+    out = make_pair_manifest(args.sample_dir, args.variant_a, args.variant_b,
+                             n=args.n, seed=args.seed,
+                             url_prefix=args.url_prefix)
+    print(f"{len(out['pairs'])} pairs ({args.variant_a} vs {args.variant_b})"
+          f" -> {os.path.join(args.sample_dir, 'pairs.json')} + pairs.csv")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="gifgan_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
@@ -661,7 +861,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "cv2", "mxu", "jax"],
                    help="stabilizer corner+LK backend (auto and mxu = the "
                         "device kernels, kernels/flow.py; cv2 = OpenCV on "
-                        "the host; jax is not ported yet)")
+                        "the host; jax = the gather flow, "
+                        "track/flow_gather.py, on the device)")
     p.add_argument("--detector-backend", default="auto",
                    choices=["auto", "native", "device", "cv2", "python"],
                    help="Haar cascade backend (auto and device = the "
@@ -747,6 +948,94 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     _add_device_arg(p, "the sampler")
     p.set_defaults(fn=cmd_visualize)
+
+    p = sub.add_parser("combine-stats", help="merge sharded track stats")
+    p.add_argument("stats_files", nargs="+")
+    p.add_argument("--out-dir", required=True)
+    p.set_defaults(fn=cmd_combine_stats)
+
+    p = sub.add_parser("scrape", help="keyword GIF scraper")
+    p.add_argument("--keywords", required=True)
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--api-key", default="")
+    p.add_argument("--num-threads", type=int, default=8)
+    p.add_argument("--items-per-thread", type=int, default=200)
+    p.add_argument("--dry-run", action="store_true",
+                   help="no network: validate the keyword file and print "
+                        "the work plan as JSON")
+    p.set_defaults(fn=cmd_scrape)
+
+    p = sub.add_parser("bulk-resize")
+    p.add_argument("--input-directory", required=True)
+    p.add_argument("--output-directory", required=True)
+    p.add_argument("--width", type=int, default=64)
+    p.add_argument("--length", type=int, default=16)
+    p.set_defaults(fn=cmd_bulk_resize)
+
+    p = sub.add_parser("video-to-gif")
+    p.add_argument("--input-directory", required=True)
+    p.add_argument("--output-directory", required=True)
+    p.add_argument("--fps", type=float, default=8.0)
+    p.set_defaults(fn=cmd_video_to_gif)
+
+    p = sub.add_parser("sample-frames",
+                       help="sample training stills from videos")
+    p.add_argument("--input-directory", required=True)
+    p.add_argument("--output-directory", required=True)
+    p.add_argument("--frames-per-video", type=int, default=5)
+    p.add_argument("--size", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+    _add_device_arg(p, "the GIF frames' resize (K2)")
+    p.set_defaults(fn=cmd_sample_frames)
+
+    p = sub.add_parser("eval-fad",
+                       help="Fréchet activation distance between two image "
+                            "dirs under a trained image-D embedding")
+    p.add_argument("--checkpoint", required=True,
+                   help="run_dir/checkpoints of a train-dcgan run (the D "
+                        "provides the feature space)")
+    p.add_argument("--real-dir", required=True)
+    p.add_argument("--fake-dir", required=True)
+    p.add_argument("--batch-size", type=int, default=256)
+    _add_device_arg(p, "the feature extraction")
+    p.set_defaults(fn=cmd_eval_fad)
+
+    p = sub.add_parser("eval-track-rate",
+                       help="face-track-rate metric over sample dirs")
+    p.add_argument("--sample-dirs", nargs="+", required=True)
+    p.add_argument("--cascade", required=True)
+    p.add_argument("--out-dir", default=None)
+    p.add_argument("--limit", type=int, default=250)
+    p.add_argument("--upscale", type=int, default=2)
+    _add_device_arg(p, "the detector and the flow")
+    p.set_defaults(fn=cmd_eval_track_rate)
+
+    p = sub.add_parser("face-detect",
+                       help="detect/rank faces in a single image")
+    p.add_argument("--image", required=True)
+    p.add_argument("--cascade", required=True)
+    p.add_argument("--min-size", type=int, default=20)
+    p.add_argument("--best", action="store_true")
+    p.add_argument("--biggest", action="store_true")
+    p.add_argument("--query", default=None,
+                   help="face image to search for (MSSIM)")
+    _add_device_arg(p, "the detector and the ranking")
+    p.set_defaults(fn=cmd_face_detect)
+
+    p = sub.add_parser(
+        "survey-pairs",
+        help="randomized A/B pair manifest + MTurk CSV from an exported "
+             "survey sample dir (reference mturk/randomize_csv.py)")
+    p.add_argument("--sample-dir", required=True)
+    p.add_argument("--variant-a", required=True)
+    p.add_argument("--variant-b", required=True)
+    p.add_argument("--n", type=int, default=None,
+                   help="pair count (default: all available)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--url-prefix", default="",
+                   help="prepended to file names in pairs.csv (the hosted "
+                        "base URL for an external MTurk HIT)")
+    p.set_defaults(fn=cmd_survey_pairs)
     return ap
 
 

@@ -1,17 +1,19 @@
-"""Host-side video/GIF IO (the port of gifgan_tpu/data/video.py's clip
-readers and writers).
+"""Host-side video/GIF IO: the port of gifgan_tpu/data/video.py.
 
 Decode stays on the host (the card cannot read a GIF or an mp4): decode
 workers produce uint8 clip arrays, and the resize + normalize transform runs
-on the card (kernels/resize.py, K2), in `read_gif(size=...)` here and in the
-streaming feed (data/loader.py). GIFs go through the shared native codec
-(data/native_gif.py); the mp4 functions need cv2, which is imported when
-they are called and is never used to resize a GIF.
+on the card (kernels/resize.py, K2), in `read_gif(size=...)` and
+`sample_frames_from_video` on GIFs here and in the streaming feed
+(data/loader.py). GIFs go through the shared native codec
+(data/native_gif.py); the mp4 and avi functions need cv2, which is imported
+when they are called and is never used to resize a GIF. Frames are written
+as PNGs by ops/image.py write_png (zlib only).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import os
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,6 +73,9 @@ def encode_mp4(path: str, frames: np.ndarray, fps: float = 25.0) -> None:
     t, h, w = frames.shape[:3]
     writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
                              (w, h))
+    if not writer.isOpened():
+        raise RuntimeError(f"cv2 cannot write mp4v to {path}: no mp4 "
+                           "encoder in this build")
     for f in frames:
         writer.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
     writer.release()
@@ -121,3 +126,120 @@ def video_to_gif(in_path: str, out_path: str, fps: float = 8.0) -> None:
     if not frames:
         raise RuntimeError(f"could not decode {in_path}")
     write_gif(out_path, np.stack(frames), fps=fps)
+
+
+def sample_frames_from_video(path: str, n: int, size: int,
+                             rng: np.random.Generator,
+                             device=None) -> List[np.ndarray]:
+    """Randomly sample n frames (by index) resized to (size, size): the
+    image-DCGAN training-set builder (reference sample_frames.py:19-37).
+
+    A GIF is decoded by the native decoder, its indices drawn from the
+    decoded count, and the chosen frames resized together on `device` by
+    resize_u8 (K2 on the card; within one grey level of cv2.INTER_LINEAR).
+    Other videos go through cv2 as in the JAX package: indices from
+    CAP_PROP_FRAME_COUNT, frames resized by cv2.INTER_LINEAR."""
+    if path.lower().endswith(".gif"):
+        device = resolve_device(device)
+        frames = native_gif.decode_gif(path)
+        total = len(frames)
+        if total <= 0:
+            return []
+        idxs = sorted(rng.choice(total, size=min(n, total), replace=False))
+        picked = frames[np.asarray(idxs, np.int64)]
+        if picked.shape[1:3] != (size, size):
+            picked = resize_u8(picked, size, device)
+        return list(picked)
+    cv2 = _cv2("video decode")
+    cap = cv2.VideoCapture(path)
+    total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    if total <= 0:
+        cap.release()
+        return []
+    idxs = sorted(rng.choice(total, size=min(n, total), replace=False))
+    out = []
+    pos = 0
+    want = set(int(i) for i in idxs)
+    while cap.isOpened() and pos <= max(want):
+        ret, im = cap.read()
+        if not ret:
+            break
+        if pos in want:
+            im = cv2.resize(im, (size, size), interpolation=cv2.INTER_LINEAR)
+            out.append(cv2.cvtColor(im, cv2.COLOR_BGR2RGB))
+        pos += 1
+    cap.release()
+    return out
+
+
+def bulk_resize(in_dir: str, out_dir: str, width: int, length: int,
+                pattern: str = ".mp4") -> dict:
+    """Re-encode every video in a dir to width x width and exactly `length`
+    frames, skipping short clips (reference bulk_resize.py:38-64). Returns
+    counts; a file that fails to decode counts as an error, as in the JAX
+    package, but a missing cv2 raises before any file is read."""
+    _cv2("mp4 decode")
+    os.makedirs(out_dir, exist_ok=True)
+    stats = {"written": 0, "skipped_short": 0, "errors": 0}
+    for name in sorted(os.listdir(in_dir)):
+        if not name.endswith(pattern):
+            continue
+        try:
+            clip = decode_clip(os.path.join(in_dir, name), length, width,
+                               strict=True)
+        except ClipTooShortError:
+            stats["skipped_short"] += 1
+            continue
+        except Exception:
+            stats["errors"] += 1
+            continue
+        encode_mp4(os.path.join(out_dir, name), clip)
+        stats["written"] += 1
+    return stats
+
+
+def video_to_frames(video_path: str, out_dir: str, rate: float,
+                    detector=None, crop_size: int = 108,
+                    prefix: str = "frame") -> dict:
+    """Extract frames at `rate` fps through cv2; with a detector (called as
+    detector(rgb_frame, frame_index) -> Detections, e.g. a
+    DeviceHaarDetector), keep only frames with a face and crop a fixed
+    crop_size box around the biggest face's centre (reference
+    video_to_frames.py:53-91). PNGs through ops/image.py write_png."""
+    from gifgan_tpu_torch.ops.image import write_png
+
+    cv2 = _cv2("video decode")
+    os.makedirs(out_dir, exist_ok=True)
+    cap = cv2.VideoCapture(video_path)
+    fps = cap.get(cv2.CAP_PROP_FPS) or 25.0
+    step = max(1, int(round(fps / rate)))
+    stats = {"frames": 0, "kept": 0, "no_face": 0}
+    i = out_i = 0
+    while cap.isOpened():
+        ret, im = cap.read()
+        if not ret:
+            break
+        if i % step == 0:
+            stats["frames"] += 1
+            rgb = cv2.cvtColor(im, cv2.COLOR_BGR2RGB)
+            keep = rgb
+            if detector is not None:
+                dets = detector(rgb, i)
+                if not dets:
+                    stats["no_face"] += 1
+                    i += 1
+                    continue
+                best = max(dets, key=lambda d: d.width * d.height)
+                cx = (best.x1 + best.x2) // 2
+                cy = (best.y1 + best.y2) // 2
+                half = crop_size // 2
+                y0 = min(max(cy - half, 0), max(rgb.shape[0] - crop_size, 0))
+                x0 = min(max(cx - half, 0), max(rgb.shape[1] - crop_size, 0))
+                keep = rgb[y0:y0 + crop_size, x0:x0 + crop_size]
+            write_png(os.path.join(out_dir, f"{prefix}_{out_i:06d}.png"),
+                      keep)
+            out_i += 1
+            stats["kept"] += 1
+        i += 1
+    cap.release()
+    return stats

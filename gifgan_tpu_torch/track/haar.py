@@ -17,14 +17,19 @@ package, built with `make -C native` at first use).
     the stage threshold in every stage.
   - `group_rectangles` follows cv2.groupRectangles.
 
-The detector that runs on the card is track/haar_device.py. The gather-based
-JaxStageEvaluator / JaxHaarDetector / BatchedJaxHaarDetector of the JAX
-package have no counterpart here yet (ROADMAP.md queue 1 item 12).
+The detector that runs on the card by default is track/haar_device.py. The
+gather detectors here (GatherStageEvaluator, GatherHaarDetector,
+BatchedGatherHaarDetector: the JAX package's JaxStageEvaluator,
+JaxHaarDetector, BatchedJaxHaarDetector) run the early stages of every
+window in one device program of plain PyTorch gathers and finish the
+survivors on the host; as in the JAX package, they are reached by name
+only, never from detect.default_detector.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass
 from typing import Tuple
@@ -241,6 +246,23 @@ def group_rectangles(boxes: np.ndarray, min_neighbors: int,
     return np.asarray(out, np.int32).reshape(-1, 4)
 
 
+def _window_origins(cas: HaarCascade, scale: float, h: int, w: int):
+    """(ww, wh, scaled rects, xs, ys) of one pyramid scale's window grid
+    on an (h, w) image, stride max(2, round(scale))."""
+    ww = int(round(cas.window_w * scale))
+    wh = int(round(cas.window_h * scale))
+    stride = max(2, int(round(scale)))
+    rs = _scaled_rects(cas, scale)
+    # rounding can push a scaled rect a pixel past the nominal window;
+    # bound origins by the true max extent so integral lookups stay in
+    # range while still scanning the last window
+    ext_x = int(max(ww, (rs[:, :, 0] + rs[:, :, 2]).max()))
+    ext_y = int(max(wh, (rs[:, :, 1] + rs[:, :, 3]).max()))
+    gx, gy = np.meshgrid(np.arange(0, w - ext_x + 1, stride),
+                         np.arange(0, h - ext_y + 1, stride))
+    return ww, wh, rs, gx.ravel(), gy.ravel()
+
+
 class HaarDetector:
     """Face detector with detectMultiScale-like parameters: the pure-numpy
     feature-scaled evaluator, all windows through the first `early_stages`
@@ -272,21 +294,9 @@ class HaarDetector:
         candidates = []
         scale = max(self.min_size / cas.window_w, 1.0)
         while True:
-            ww = int(round(cas.window_w * scale))
-            wh = int(round(cas.window_h * scale))
+            ww, wh, rs, xs, ys = _window_origins(cas, scale, h, w)
             if ww > min(w, max_len) or wh > min(h, max_len):
                 break
-            stride = max(2, int(round(scale)))
-            rs = _scaled_rects(cas, scale)
-            # rounding can push a scaled rect a pixel past the nominal
-            # window; bound origins by the true max extent so integral
-            # lookups stay in range while still scanning the last window
-            ext_x = int(max(ww, (rs[:, :, 0] + rs[:, :, 2]).max()))
-            ext_y = int(max(wh, (rs[:, :, 1] + rs[:, :, 3]).max()))
-            xs0 = np.arange(0, w - ext_x + 1, stride)
-            ys0 = np.arange(0, h - ext_y + 1, stride)
-            gx, gy = np.meshgrid(xs0, ys0)
-            xs, ys = gx.ravel(), gy.ravel()
             if len(xs):
                 alive = _eval_stages(cas, ii, ii2, xs, ys, scale, 0,
                                      self.early_stages, rs)
@@ -310,6 +320,217 @@ class HaarDetector:
                 else frame.astype(np.float64))
         rects = self.detect_rects(gray)
         return [Detection.from_rect(r, frame_number) for r in rects]
+
+
+# ---------------------------------------------------------------------------
+# Gather evaluation on the device: the early (cheap) stages for all windows
+# run as one program of plain PyTorch ops (no hand-written kernel: the JAX
+# package's version is XLA code, not Pallas). Features are gathered from the
+# float32 integral images in bulk, every tree is evaluated at once, the
+# stage sums are one product with a stage-indicator matrix; the few
+# survivors go through the deep stages on the host in float64. The JAX
+# package pads window counts to power-of-two buckets so XLA compiles once a
+# bucket; eager PyTorch compiles nothing, and padded windows are masked out
+# there, so the buckets are not kept.
+# ---------------------------------------------------------------------------
+
+_tf32_lock = threading.Lock()
+
+
+def _stage_sums(vals, stage_ind):
+    """(..., W, T) leaf values @ (T, S) indicator in full float32 (TF32
+    would round the leaf values the stage thresholds are compared with)."""
+    import torch
+
+    if not vals.is_cuda:
+        return vals @ stage_ind
+    with _tf32_lock:     # the flag is process-wide
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return vals @ stage_ind
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+class GatherStageEvaluator:
+    """Stages [0, stage_hi) of `cas` for many windows at once on `device`
+    (the JAX package's JaxStageEvaluator). Call with float32 integral images
+    (H+1, W+1), or a stack of them (N, H+1, W+1) sharing one window grid,
+    and the window origins; returns the alive mask, (W,) or (N, W)."""
+
+    def __init__(self, cas: HaarCascade, stage_hi: int, device=None):
+        import torch
+
+        from gifgan_tpu_torch import resolve_device
+
+        self.device = resolve_device(device)
+        self.cas = cas
+        t1 = cas.stage_first[stage_hi - 1] + cas.stage_count[stage_hi - 1]
+        self.n_trees = int(t1)
+        feats = np.unique(cas.node_feat[:t1].ravel())
+        self.feats = feats
+        fmap = np.full(cas.rects.shape[0], -1, np.int64)
+        fmap[feats] = np.arange(len(feats))
+
+        def dev(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=self.device)
+
+        self.local_feat = dev(fmap[cas.node_feat[:t1]], torch.int64)
+        self.node_thr = dev(cas.node_thr[:t1], torch.float32)
+        self.node_left = dev(cas.node_left[:t1], torch.int64)
+        self.node_right = dev(cas.node_right[:t1], torch.int64)
+        self.leaves = dev(cas.leaves[:t1], torch.float32)
+        ind = np.zeros((self.n_trees, stage_hi), np.float32)
+        for s in range(stage_hi):
+            a = cas.stage_first[s]
+            ind[a:a + cas.stage_count[s], s] = 1.0
+        self.stage_ind = dev(ind, torch.float32)
+        self.stage_thr = dev(cas.stage_thr[:stage_hi], torch.float32)
+        self._rects = {}
+
+    def _scale_rects(self, scale: float):
+        """The needed features' rects at `scale` on the device, cached."""
+        import torch
+
+        if scale not in self._rects:
+            rs = _scaled_rects(self.cas, scale)[self.feats]  # (Fsub, 3, 5)
+            to = lambda a, dt: torch.as_tensor(
+                np.ascontiguousarray(a), dtype=dt, device=self.device)
+            self._rects[scale] = (
+                to(rs[:, :, 0], torch.int64), to(rs[:, :, 1], torch.int64),
+                to(rs[:, :, 2], torch.int64), to(rs[:, :, 3], torch.int64),
+                to(rs[:, :, 4], torch.float32))
+        return self._rects[scale]
+
+    def __call__(self, ii, ii2, xs: np.ndarray, ys: np.ndarray,
+                 scale: float) -> np.ndarray:
+        import torch
+
+        cas = self.cas
+        ii = torch.as_tensor(ii, dtype=torch.float32).to(self.device)
+        ii2 = torch.as_tensor(ii2, dtype=torch.float32).to(self.device)
+        single = ii.ndim == 2
+        if single:
+            ii, ii2 = ii[None], ii2[None]
+        rx, ry, rw, rh, wt = self._scale_rects(scale)
+        ww = int(round(cas.window_w * scale))
+        wh = int(round(cas.window_h * scale))
+        inv_area = 1.0 / (ww * wh)
+        xs = torch.as_tensor(np.asarray(xs, np.int64), device=self.device)
+        ys = torch.as_tensor(np.asarray(ys, np.int64), device=self.device)
+
+        # window normalization factor, (N, W)
+        s1 = (ii[:, ys, xs] + ii[:, ys + wh, xs + ww]
+              - ii[:, ys, xs + ww] - ii[:, ys + wh, xs])
+        s2 = (ii2[:, ys, xs] + ii2[:, ys + wh, xs + ww]
+              - ii2[:, ys, xs + ww] - ii2[:, ys + wh, xs])
+        mean = s1 * inv_area
+        var = s2 * inv_area - mean * mean
+        one = torch.ones((), device=self.device)
+        nf = torch.where(var > 0, torch.sqrt(torch.clamp(var, min=0.0)), one)
+
+        # feature values, (N, W, Fsub): the three rects summed in order
+        x1 = xs[:, None, None] + rx
+        y1 = ys[:, None, None] + ry
+        x2, y2 = x1 + rw, y1 + rh
+        sums = (ii[:, y1, x1] + ii[:, y2, x2] - ii[:, y1, x2]
+                - ii[:, y2, x1]) * wt
+        fvals = (sums[..., 0] + sums[..., 1] + sums[..., 2]) * inv_area
+
+        lf, thr = self.local_feat, self.node_thr
+        nl, nr = self.node_left, self.node_right
+        f0 = fvals[:, :, lf[:, 0]]                          # (N, W, T)
+        f1 = fvals[:, :, lf[:, 1]]
+        nfc = nf[:, :, None]
+        child = torch.where(f0 < thr[:, 0] * nfc, nl[:, 0], nr[:, 0])
+        leaf_n1 = torch.where(f1 < thr[:, 1] * nfc, -nl[:, 1], -nr[:, 1])
+        leaf_idx = torch.where(child <= 0, -child, leaf_n1)
+        tree = torch.arange(self.n_trees, device=self.device)
+        vals = self.leaves[tree, leaf_idx]                  # (N, W, T)
+        stage_sums = _stage_sums(vals, self.stage_ind)      # (N, W, S)
+        alive = torch.all(stage_sums >= self.stage_thr, dim=-1).cpu().numpy()
+        return alive[0] if single else alive
+
+
+class GatherHaarDetector(HaarDetector):
+    """HaarDetector with the early stages of all windows evaluated on
+    `device` (the card by default) by GatherStageEvaluator, the survivors
+    finished on the host (the JAX package's JaxHaarDetector). The same
+    detections as the numpy path, float32 against float64 rounding aside.
+    Frames whose float32 integral image would pass 2^24 (h * w * 255) take
+    the float64 numpy path, as in the JAX package."""
+
+    def __init__(self, *args, device=None, **kwargs):
+        from gifgan_tpu_torch import resolve_device
+
+        device = resolve_device(device)      # no card: raises here
+        super().__init__(*args, **kwargs)
+        self._gather_eval = GatherStageEvaluator(self.cas, self.early_stages,
+                                                 device=device)
+
+    def _candidates(self, grays: np.ndarray):
+        """Per frame of a (N, H, W) stack, the windows passing every stage:
+        one device evaluation a scale for all frames, then each frame's
+        survivors through the deep stages on the host."""
+        cas = self.cas
+        n, h, w = grays.shape
+        max_len = math.sqrt(h * w) * self.max_size_factor
+        host = [integral_images(g) for g in grays]
+        iis = np.stack([a for a, _ in host]).astype(np.float32)
+        ii2s = np.stack([b for _, b in host]).astype(np.float32)
+        candidates = [[] for _ in range(n)]
+        scale = max(self.min_size / cas.window_w, 1.0)
+        while True:
+            ww, wh, rs, xs, ys = _window_origins(cas, scale, h, w)
+            if ww > min(w, max_len) or wh > min(h, max_len):
+                break
+            if len(xs):
+                alive = self._gather_eval(iis, ii2s, xs, ys, scale)
+                for fi in np.nonzero(alive.any(axis=1))[0]:
+                    xs2, ys2 = xs[alive[fi]], ys[alive[fi]]
+                    ii, ii2 = host[fi]
+                    deep = _eval_stages(cas, ii, ii2, xs2, ys2, scale,
+                                        self.early_stages,
+                                        len(cas.stage_thr), rs)
+                    for x, y in zip(xs2[deep], ys2[deep]):
+                        candidates[fi].append((x, y, ww, wh))
+            scale *= self.scale_factor
+        return [group_rectangles(np.asarray(c, np.int64).reshape(-1, 4),
+                                 self.min_neighbors) for c in candidates]
+
+    def detect_rects(self, gray: np.ndarray) -> np.ndarray:
+        h, w = gray.shape[:2]
+        if h * w * 255.0 > 2 ** 24:
+            return super().detect_rects(gray)
+        return self._candidates(np.asarray(gray)[None])[0]
+
+
+class BatchedGatherHaarDetector(GatherHaarDetector):
+    """Video-rate detection (the JAX package's BatchedJaxHaarDetector): the
+    early stages for all frames of a clip in one device program a scale
+    (the frames share the window grid), the survivors finished per frame
+    on the host. `detect_batch` takes (T, H, W) grays; `detect_video`
+    (T, H, W, C) uint8 frames."""
+
+    def detect_batch(self, grays: np.ndarray):
+        """grays: (T, H, W) float. Returns a list of T (M_t, 4) rect
+        arrays."""
+        t, h, w = grays.shape
+        if h * w * 255.0 > 2 ** 24:   # float32 precision limit: float64
+            return [HaarDetector.detect_rects(self, g) for g in grays]
+        return self._candidates(grays)
+
+    def detect_video(self, frames_rgb: np.ndarray):
+        """frames (T, H, W, C) uint8 -> list of per-frame Detection lists."""
+        from gifgan_tpu_torch.track.boxes import Detection
+
+        grays = np.dot(frames_rgb[..., :3].astype(np.float64),
+                       [0.299, 0.587, 0.114])
+        rect_lists = self.detect_batch(grays)
+        return [[Detection.from_rect(r, i) for r in rects]
+                for i, rects in enumerate(rect_lists)]
 
 
 def make_native_cascade_handle(cas: HaarCascade):

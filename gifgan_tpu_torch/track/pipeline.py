@@ -71,8 +71,9 @@ def crop_and_resize_tracks(frames: np.ndarray, tracks: List[B.Track],
 def _flow_backend(cfg: TrackConfig, device) -> Callable:
     """cfg.flow_backend -> a (prev_crop, crop) flow function: "auto" and
     "mxu" give the device kernels on `device` (the card unless the caller
-    names another), whatever else is installed; only "cv2", asked for by
-    name, gives OpenCV on the host."""
+    names another), whatever else is installed; "jax" the gather flow of
+    track/flow_gather.py on `device`; only "cv2", asked for by name, gives
+    OpenCV on the host."""
     choice = cfg.flow_backend
     if choice in ("auto", "mxu"):
         from gifgan_tpu_torch.kernels.flow import mxu_flow_backend
@@ -88,9 +89,13 @@ def _flow_backend(cfg: TrackConfig, device) -> Callable:
             cfg.corner_min_distance, win_size=cfg.lk_window,
             max_level=cfg.lk_levels)
     if choice == "jax":
-        raise NotImplementedError(
-            'flow_backend="jax" (gifgan_tpu/track/flow_jax.py) is not '
-            'ported yet (ROADMAP.md queue 1 item 12); use "mxu" or "cv2"')
+        from gifgan_tpu_torch.track.flow_gather import gather_flow_backend
+
+        device = resolve_device(device)
+        return lambda a, b: gather_flow_backend(
+            a, b, cfg.max_corners, cfg.corner_quality,
+            cfg.corner_min_distance, win_size=cfg.lk_window,
+            max_level=cfg.lk_levels, device=device)
     raise ValueError(f"unknown flow_backend {choice!r}")
 
 

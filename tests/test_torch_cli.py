@@ -135,7 +135,7 @@ def test_train_vid_auto_intervene_and_resume(tmp_path):
 
 def test_stills_from_a_directory_equal_the_jax_cli(tmp_path):
     """`_stills_u8` on a directory of images of several sizes and channel
-    counts (read with imageio, resized by ops/image.py resize_bilinear)
+    counts (read with cv2, resized by ops/image.py resize_bilinear)
     against the JAX CLI's (jax.image.resize): within one grey level, the
     rounding of float32 values that differ in their last bits."""
     import argparse
@@ -450,3 +450,289 @@ def test_a_run_the_jax_package_wrote_inverts_through_the_port(tmp_path):
                      "--out-dir", str(tmp_path / "vis"), "--option", "0",
                      "--batch-size", "4", "--device", "cpu"]) == 0
     assert os.listdir(tmp_path / "vis") == ["test_random.png"]
+
+
+# ---------------------------------------------------------------------------
+# The data-collection and evaluation commands (combine-stats, scrape,
+# bulk-resize, video-to-gif, sample-frames, eval-fad, eval-track-rate,
+# face-detect, survey-pairs) against the JAX commands on the same inputs,
+# and the stills reader without imageio.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cascade_xml(tmp_path_factory):
+    from gifgan_tpu_torch.track import synthetic_cascade as SC
+
+    return SC.write_cascade(
+        str(tmp_path_factory.mktemp("cascade") / "small.xml"), seed=0,
+        stages=SC.SMALL_STAGES, n_pos=300, n_neg=1500)
+
+
+def _jax_main(argv):
+    from gifgan_tpu import cli as jcli
+
+    jcli.main(argv)
+
+
+def _both(capsys, argv, port_extra=("--device", "cpu")):
+    """Run one command in both packages: (port stdout, JAX stdout)."""
+    assert cli.main(argv + list(port_extra)) == 0
+    got = capsys.readouterr().out
+    _jax_main(argv)
+    return got, capsys.readouterr().out
+
+
+def test_stills_u8_reads_without_imageio(tmp_path, monkeypatch):
+    """`_stills_u8` reads a directory with cv2, imageio unimportable in the
+    process: RGB, RGBA and grayscale PNGs give the JAX CLI's bytes."""
+    import argparse
+    import sys
+
+    from gifgan_tpu import cli as jcli
+    from gifgan_tpu.core.config import DCGANConfig as JDCGANConfig
+    from gifgan_tpu_torch.core.config import DCGANConfig
+    from gifgan_tpu_torch.ops.image import write_png
+
+    rng = np.random.default_rng(3)
+    for name, c in (("rgb", 3), ("rgba", 4), ("gray", 1)):
+        write_png(str(tmp_path / f"{name}.png"),
+                  rng.integers(0, 256, (32, 32, c), dtype=np.uint8))
+    args = argparse.Namespace(dataset=str(tmp_path), dataset_size=0)
+    for c_dim in (3, 1):
+        with monkeypatch.context() as m:
+            for mod in ("imageio", "imageio.v2", "imageio.v3"):
+                m.setitem(sys.modules, mod, None)
+            got = cli._stills_u8(args, DCGANConfig(output_size=32,
+                                                   c_dim=c_dim))
+        want = jcli._stills_u8(args, JDCGANConfig(output_size=32,
+                                                  c_dim=c_dim))
+        assert got.shape == want.shape == (3, 32, 32, c_dim)
+        np.testing.assert_array_equal(got, want)     # gray, rgb, rgba
+
+
+def _stats_file(path, seed):
+    from gifgan_tpu_torch.track.stats import TrackStats
+
+    rng = np.random.default_rng(seed)
+    s = TrackStats()
+    s.total_files = 5
+    s.cnt_files_processed = int(rng.integers(1, 5))
+    s.cnt_total_detections = int(rng.integers(10, 99))
+    s.observe_track(12, [40, 41], [38, 39])
+    s.observe_final(1, [12])
+    s.write(str(path))
+    return str(path / "stats.json")
+
+
+def test_data_commands_equal_the_jax_cli(tmp_path, capsys):
+    """combine-stats, scrape --dry-run, bulk-resize, video-to-gif and
+    sample-frames (a GIF and an mp4: PNGs within one grey level, the GIF's
+    resized by K2's plain version, cv2 in JAX)."""
+    import cv2
+
+    from gifgan_tpu_torch.data.video import encode_mp4, read_gif, write_gif
+
+    files = [_stats_file(tmp_path / f"s{i}", i) for i in range(2)]
+    got, want = _both(capsys, ["combine-stats"] + files + [
+        "--out-dir", str(tmp_path / "c")], ())
+    assert got == want and "files" in got.lower()
+    _jax_main(["combine-stats"] + files + ["--out-dir",
+                                           str(tmp_path / "cj")])
+    capsys.readouterr()
+    with open(tmp_path / "c" / "stats.json") as f:
+        combined = json.load(f)
+    with open(tmp_path / "cj" / "stats.json") as f:
+        assert json.load(f) == combined
+    assert combined["total_files"] == 10
+    assert combined["counters"]["cnt_final_tracks"] == 2
+
+    kw = tmp_path / "kw.txt"
+    kw.write_text("old\n# keywords not tried yet\nface\nsmile\n")
+    (tmp_path / "scr" / "face").mkdir(parents=True)
+    (tmp_path / "scr" / "face" / "abc.mp4").write_bytes(b"")
+    argv = ["scrape", "--keywords", str(kw), "--out-dir",
+            str(tmp_path / "scr"), "--num-threads", "3",
+            "--items-per-thread", "250", "--dry-run"]
+    got, want = _both(capsys, argv, ())
+    assert json.loads(got) == json.loads(want)
+    assert json.loads(got)["already_downloaded_ids"] == 1
+    assert json.loads(got)["planned_requests_per_keyword"] == 9
+
+    src = tmp_path / "src"
+    src.mkdir()
+    rng = np.random.default_rng(4)
+    clip = rng.integers(0, 256, (9, 40, 48, 3), dtype=np.uint8)
+    clip = np.stack([cv2.GaussianBlur(f, (5, 5), 0) for f in clip])
+    encode_mp4(str(src / "a.mp4"), clip)
+    encode_mp4(str(src / "b.mp4"), clip[:3])
+    write_gif(str(src / "c.gif"), clip[:7])
+    got, want = _both(capsys, ["bulk-resize", "--input-directory", str(src),
+                               "--output-directory", str(tmp_path / "br"),
+                               "--width", "24", "--length", "6"], ())
+    assert json.loads(got) == json.loads(want) == {
+        "written": 1, "skipped_short": 1, "errors": 0}
+
+    for side in ("t", "j"):
+        argv = ["video-to-gif", "--input-directory", str(src),
+                "--output-directory", str(tmp_path / f"g{side}"), "--fps",
+                "5"]
+        if side == "t":
+            assert cli.main(argv) == 0
+        else:
+            _jax_main(argv)
+    capsys.readouterr()
+    assert sorted(os.listdir(tmp_path / "gt")) == \
+        sorted(os.listdir(tmp_path / "gj")) == ["a.gif", "b.gif"]
+    for n in ("a.gif", "b.gif"):
+        np.testing.assert_array_equal(read_gif(str(tmp_path / "gt" / n)),
+                                      read_gif(str(tmp_path / "gj" / n)))
+
+    argv = ["sample-frames", "--input-directory", str(src),
+            "--frames-per-video", "4", "--size", "16", "--seed", "3"]
+    assert cli.main(argv + ["--output-directory", str(tmp_path / "ft"),
+                            "--device", "cpu"]) == 0
+    _jax_main(argv + ["--output-directory", str(tmp_path / "fj")])
+    assert capsys.readouterr().out.splitlines() == ["wrote 11 frames"] * 2
+    names = sorted(os.listdir(tmp_path / "ft"))
+    assert names == sorted(os.listdir(tmp_path / "fj"))
+    assert len(names) == 11
+    for n in names:
+        a = cv2.imread(str(tmp_path / "ft" / n), cv2.IMREAD_COLOR)
+        b = cv2.imread(str(tmp_path / "fj" / n), cv2.IMREAD_COLOR)
+        assert a.shape == b.shape == (16, 16, 3)
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+def test_eval_fad_and_survey_pairs_equal_the_jax_cli(img_run, tmp_path,
+                                                     capsys):
+    """eval-fad on the same train-dcgan run and image directories (48
+    images a set, more than the 32 feature dimensions; some resized):
+    within 1e-3 relative or 1e-6 absolute. survey-pairs on an exported
+    sample directory: the same output and files."""
+    from gifgan_tpu_torch.eval.survey import export_survey_samples
+    from gifgan_tpu_torch.ops.image import write_png
+
+    rng = np.random.default_rng(6)
+    for d, shift in (("real", 0), ("fake", 60)):
+        (tmp_path / d).mkdir()
+        for i in range(48):
+            side = 40 if i % 5 == 0 else 32
+            im = np.clip(rng.normal(128 + shift, 50, (side, side, 3)), 0,
+                         255).astype(np.uint8)
+            write_png(str(tmp_path / d / f"{i:03d}.png"), im)
+    argv = ["eval-fad", "--checkpoint", img_run, "--real-dir",
+            str(tmp_path / "real"), "--fake-dir", str(tmp_path / "fake"),
+            "--batch-size", "24"]
+    got, want = (json.loads(o) for o in _both(capsys, argv))
+    assert got["n_real"] == want["n_real"] == 48
+    assert got["n_fake"] == want["n_fake"] == 48
+    assert want["fad"] > 0
+    assert abs(got["fad"] - want["fad"]) <= max(1e-3 * want["fad"], 1e-6)
+    same = argv[:6] + [str(tmp_path / "real")] + argv[7:]
+    assert cli.main(same + ["--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out)["fad"] < 1e-6
+
+    vids = {v: rng.integers(0, 256, (4, 3, 16, 16, 3), dtype=np.uint8)
+            for v in ("rnn", "stride")}
+    for side in ("t", "j"):
+        export_survey_samples({v: (lambda n, v=v: vids[v][:n])
+                               for v in vids}, str(tmp_path / side),
+                              samples_per_variant=4)
+    out = {}
+    for side in ("t", "j"):
+        argv = ["survey-pairs", "--sample-dir", str(tmp_path / side),
+                "--variant-a", "rnn", "--variant-b", "stride", "--n", "3",
+                "--seed", "2", "--url-prefix", "https://host/"]
+        if side == "t":
+            assert cli.main(argv) == 0
+        else:
+            _jax_main(argv)
+        out[side] = capsys.readouterr().out.replace(str(tmp_path / side), "")
+    assert out["t"] == out["j"] and out["t"].startswith("3 pairs")
+    for name in ("pairs.json", "pairs.csv"):
+        assert (tmp_path / "t" / name).read_text() == \
+            (tmp_path / "j" / name).read_text()
+
+
+def _glyph_frame(tmp_path):
+    """A 160x200 frame with two glyphs of two sizes over black, and a query
+    image of the smaller one."""
+    from gifgan_tpu_torch.ops.image import write_png
+    from gifgan_tpu_torch.track import synthetic_cascade as SC
+
+    frame = np.zeros((160, 200, 3), np.uint8)
+    for x, y, side in ((10, 20, 64), (110, 60, 48)):
+        g = np.rint(SC.glyph_image(side)).astype(np.uint8)
+        frame[y:y + side, x:x + side] = g[..., None]
+    write_png(str(tmp_path / "frame.png"), frame)
+    write_png(str(tmp_path / "query.png"), frame[60:108, 110:158])
+    return str(tmp_path / "frame.png"), str(tmp_path / "query.png")
+
+
+def test_face_detect_equals_the_jax_cli(cascade_xml, tmp_path, capsys,
+                                        monkeypatch):
+    """face-detect --best --biggest --query: with one detector in both
+    packages (the numpy cascade, put in place of each default_detector),
+    the same boxes and picks, scores and similarities within 1e-4 (the
+    crops' antialiased resize in float32). With its own default (the
+    device detector, its plain version here) the port finds both glyphs."""
+    from gifgan_tpu.track import detect as jdetect
+    from gifgan_tpu.track import haar as jhaar
+    from gifgan_tpu_torch.track import detect as tdetect
+    from gifgan_tpu_torch.track import haar as thaar
+
+    image, query = _glyph_frame(tmp_path)
+    argv = ["face-detect", "--image", image, "--cascade", cascade_xml,
+            "--min-size", "30", "--best", "--biggest", "--query", query]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    own = json.loads(capsys.readouterr().out)
+    assert len(own["faces"]) == 2
+
+    made = []
+    for mod, haar in ((tdetect, thaar), (jdetect, jhaar)):
+        def python_detector(cascade_path=None, min_neighbors=3, min_size=20,
+                            haar=haar, **kw):
+            made.append((min_neighbors, min_size))
+            return haar.HaarDetector(cascade_path,
+                                     min_neighbors=min_neighbors,
+                                     min_size=min_size)
+        monkeypatch.setattr(mod, "default_detector", python_detector)
+    got, want = (json.loads(o) for o in _both(capsys, argv))
+    assert made == [(3, 30)] * 2
+    assert len(want["faces"]) == 2
+    for k in ("faces", "best", "biggest", "most_similar"):
+        assert got[k] == want[k], k
+    for k in ("scores", "similarities"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4)
+    assert got["biggest"][0] == 10
+    for box in own["faces"]:
+        assert min(np.abs(np.array(want["faces"]) - box).max(axis=1)) <= 8
+
+
+def test_eval_track_rate_equals_the_jax_cli(cascade_xml, tmp_path, capsys):
+    """eval-track-rate over a directory of glyph GIFs and one of noise GIFs
+    (64x64, upscaled 2x): the port's device detector and device flow (their
+    plain versions here) against the JAX command's host detector and flow;
+    the same report."""
+    from gifgan_tpu_torch.data.video import write_gif
+    from gifgan_tpu_torch.track import synthetic_cascade as SC
+
+    rng = np.random.default_rng(8)
+    glyph = np.rint(SC.glyph_image(44)).astype(np.uint8)
+    for d in ("glyphs", "noise"):
+        (tmp_path / d).mkdir()
+        for i in range(2):
+            if d == "noise":
+                clip = rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8)
+            else:
+                clip = np.zeros((10, 64, 64, 3), np.uint8)
+                for t in range(10):
+                    x, y = 4 + i + t, 6 + t // 2
+                    clip[t, y:y + 44, x:x + 44] = glyph[..., None]
+            write_gif(str(tmp_path / d / f"{i}.gif"), clip)
+    argv = ["eval-track-rate", "--sample-dirs", str(tmp_path / "glyphs"),
+            str(tmp_path / "noise") + "/", "--cascade", cascade_xml,
+            "--limit", "5"]
+    got, want = _both(capsys, argv)
+    assert got == want
+    assert "glyphs: 2/2 (100.0%)" in got and "noise: 0/2 (0.0%)" in got

@@ -32,7 +32,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 61, out.stdout
+    assert int(n) >= 68, out.stdout
     assert bad == "[]", bad
 
 
@@ -54,6 +54,8 @@ def _entry_points():
     from gifgan_tpu_torch.core.rng import PRNGSequence
     from gifgan_tpu_torch.models import prednet, rnn_prototypes
     from gifgan_tpu_torch.train import gan, loops, recurrent, vid
+    from gifgan_tpu_torch.eval import fad, track_rate
+    from gifgan_tpu_torch.track import flow_gather, haar
 
     frames = np.zeros((4, 48, 48, 3), np.uint8)
     track = [Detection(8, 8, 40, 40, i) for i in range(4)]
@@ -150,6 +152,31 @@ def _entry_points():
             torch.Generator(), 6),
         "conv_cls_init": lambda: rnn_prototypes.conv_cls_init(
             torch.Generator()),
+        "sample_frames_from_video_gif": lambda:
+            video.sample_frames_from_video("/none.gif", 2, 8,
+                                           np.random.default_rng(0)),
+        "fad": lambda: fad.fad({}, {}, frames, frames, DCGANConfig()),
+        "face_track_rate": lambda: track_rate.face_track_rate(
+            [frames], lambda f, i: []),
+        "gather_flow_backend": lambda: flow_gather.gather_flow_backend(
+            frames[0, ..., 0], frames[0, ..., 0]),
+        "process_video_gather_flow": lambda: pipeline.process_video(
+            frames, lambda f, i: [], TrackConfig(flow_backend="jax")),
+        "GatherHaarDetector": lambda: haar.GatherHaarDetector("/none.xml"),
+        "BatchedGatherHaarDetector": lambda: haar.BatchedGatherHaarDetector(
+            "/none.xml"),
+        "cli_sample_frames": lambda: cli.main(
+            ["sample-frames", "--input-directory", "/none",
+             "--output-directory", "/none"]),
+        "cli_eval_fad": lambda: cli.main(
+            ["eval-fad", "--checkpoint", "/none", "--real-dir", "/none",
+             "--fake-dir", "/none"]),
+        "cli_eval_track_rate": lambda: cli.main(
+            ["eval-track-rate", "--sample-dirs", "/none", "--cascade",
+             "/none.xml"]),
+        "cli_face_detect": lambda: cli.main(
+            ["face-detect", "--image", "/none.png", "--cascade",
+             "/none.xml"]),
     }
 
 

@@ -220,9 +220,17 @@ def test_process_video_matches_jax(monkeypatch):
 
 
 def test_unported_flow_backend_raises():
+    """Every flow backend the JAX package names is ported ("jax" is the
+    gather flow, track/flow_gather.py: tests/test_torch_flow_gather.py
+    holds it to the JAX package); a name no package has raises."""
     frames, boxes = _square_video(T=12)
-    cfg = TrackConfig(**{**CFG, "flow_backend": "jax"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = TrackConfig(**{**CFG, "flow_backend": "jax", "min_frame_count": 5,
+                         "min_total_detections": 2})
+    clips = tpipe.process_video(frames, _detector(TB.Detection, boxes), cfg,
+                                device="cpu")
+    assert len(clips) == 1 and clips[0].shape[1:] == (32, 32, 3)
+    cfg = TrackConfig(**{**CFG, "flow_backend": "pallas"})
+    with pytest.raises(ValueError, match="flow_backend"):
         tpipe.process_video(frames, _detector(TB.Detection, boxes), cfg,
                             device="cpu")
 
