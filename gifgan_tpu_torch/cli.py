@@ -2,15 +2,18 @@
 
 The commands `train-dcgan`, `train-vid`, `train-recurrent`, `sample-wall`,
 `quantize-export`, `track`, `invert`, `z-extract`, `make-paths`,
-`derive-paths`, `visualize`, `combine-stats`, `scrape`, `bulk-resize`,
-`video-to-gif`, `sample-frames`, `eval-fad`, `eval-track-rate`,
-`face-detect` and `survey-pairs`, with the flags of the JAX package's
-(gifgan_tpu/cli.py), plus `--device` where a command touches the card: it
-runs on the CUDA card unless `--device cpu` is given. Not here yet: the
-mesh flags (`--data-parallel`, `--fsdp*`, `--tensor-parallel`,
-`--seq-parallel`). `invert`, `z-extract` and `train-recurrent` write GIFs
-where the JAX package writes mp4s; `invert`, `face-detect` and the image
-directories of `train-dcgan` and `eval-fad` are read with cv2.
+`derive-paths`, `visualize`, `export-web`, `combine-stats`, `scrape`,
+`bulk-resize`, `video-to-gif`, `sample-frames`, `explorer`,
+`webcam-serve`, `eval-fad`, `eval-track-rate`, `face-detect`,
+`survey-serve`, `survey-pairs`, `ckpt-downgrade` and `ckpt-inspect`, with
+the flags of the JAX package's (gifgan_tpu/cli.py), plus `--device` where
+a command touches the card: it runs on the CUDA card unless `--device
+cpu` is given. Not here yet: `bench` and the mesh flags
+(`--data-parallel`, `--fsdp*`, `--tensor-parallel`, `--seq-parallel`).
+`invert`, `z-extract` and `train-recurrent` write GIFs where the JAX
+package writes mp4s; `invert`, `face-detect` and the image directories of
+`train-dcgan` and `eval-fad` are read with cv2, as are the webcam
+service's uploads.
 """
 
 from __future__ import annotations
@@ -721,6 +724,108 @@ def cmd_survey_pairs(args) -> None:
           f" -> {os.path.join(args.sample_dir, 'pairs.json')} + pairs.csv")
 
 
+def cmd_export_web(args) -> None:
+    """Export the image generator as a self-contained browser demo dir
+    (weights.json + golden fixture + draw.html/generator.js — the
+    reference's web/ convnet.js demo, serve/web_export.py)."""
+    from gifgan_tpu_torch.serve.web_export import export_browser_demo
+
+    cfg, params, state = _load_dcgan_from_run(args.checkpoint, args.device)
+    out = export_browser_demo(params["generator"], state["generator"], cfg,
+                              args.out_dir)
+    print(f"browser demo exported to {out}; serve it and open draw.html "
+          "(?selftest=1 runs the pixel-parity check)")
+
+
+def cmd_ckpt_downgrade(args) -> None:
+    from gifgan_tpu_torch.core.ckpt_tools import downgrade_checkpoint
+
+    out = downgrade_checkpoint(args.input_prefix, args.output)
+    print(f"wrote V1 TensorSlice checkpoint: {out}")
+
+
+def cmd_ckpt_inspect(args) -> None:
+    if os.path.isdir(args.path):
+        from gifgan_tpu_torch.core.ckpt_tools import inspect
+
+        print(inspect(args.path))
+    else:
+        from gifgan_tpu_torch.core.ckpt_tools import read_tf_checkpoint
+
+        for name, arr in sorted(read_tf_checkpoint(args.path).items()):
+            print(f"{name}  {arr.dtype}  {arr.shape}")
+
+
+def cmd_explorer(args) -> None:
+    """The latent explorer web app on a train-dcgan run's generator, float
+    or int8, on the card (resolved before the server listens)."""
+    import time
+
+    from gifgan_tpu_torch.serve import STATIC_DIR
+    from gifgan_tpu_torch.serve.explorer import (ExplorerCore, dcgan_sampler,
+                                                 serve)
+
+    cfg, params, state = _load_dcgan_from_run(args.checkpoint, args.device)
+    sampler = dcgan_sampler(params, state, cfg, batch_size=args.batch_size,
+                            int8=args.int8, int8_calib=args.int8_calib,
+                            int8_float_last=args.int8_float_last,
+                            device=args.device)
+    core = ExplorerCore(sampler, cfg.z_dim, args.media_dir,
+                        batch_size=args.batch_size)
+    if args.warmup:
+        t0 = time.perf_counter()
+        sampler(np.zeros((args.batch_size, cfg.z_dim), np.float32))
+        print(f"sampler warm ({time.perf_counter() - t0:.1f}s)")
+    print(f"explorer listening on {args.host}:{args.port}")
+    serve(core, host=args.host, port=args.port, static_dir=STATIC_DIR,
+          auth_token=args.auth_token,
+          tls_cert=args.tls_cert, tls_key=args.tls_key)
+
+
+def cmd_webcam_serve(args) -> None:
+    """The webcam demo's inversion service on a train-dcgan run, on the
+    card (resolved before the server listens)."""
+    import time
+
+    from gifgan_tpu_torch.serve.webcam import (WebcamBackend,
+                                               load_latent_paths, serve)
+
+    cfg, params, state = _load_dcgan_from_run(args.checkpoint, args.device)
+    paths = (load_latent_paths(args.paths_dir, cfg.z_dim)
+             if args.paths_dir else {})
+    backend = WebcamBackend(params, state, cfg, args.out_dir, paths=paths,
+                            steps=args.num_steps,
+                            batch_size=args.batch_size, device=args.device)
+    if args.warmup:
+        t0 = time.perf_counter()
+        backend.warmup()
+        print(f"inversion warm ({time.perf_counter() - t0:.1f}s)")
+    print(f"webcam service on {args.host}:{args.port} "
+          f"({len(paths)} expression paths)")
+    serve(backend, host=args.host, port=args.port,
+          auth_token=args.auth_token,
+          tls_cert=args.tls_cert, tls_key=args.tls_key)
+
+
+def cmd_survey_serve(args) -> None:
+    from gifgan_tpu_torch.serve.survey import SurveyServer, serve
+
+    survey = SurveyServer(args.sample_dir)
+    print(f"survey on {args.host}:{args.port} "
+          f"(responses -> {survey.responses_path})")
+    serve(survey, host=args.host, port=args.port,
+          tls_cert=args.tls_cert, tls_key=args.tls_key)
+
+
+def _add_tls_args(p):
+    p.add_argument("--tls-cert", default=None,
+                   help="PEM certificate chain: serve HTTPS in-process "
+                        "(terminating TLS at a front proxy works too — "
+                        "see serve/http_common.py)")
+    p.add_argument("--tls-key", default=None,
+                   help="PEM private key for --tls-cert")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="gifgan_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
@@ -949,6 +1054,13 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device_arg(p, "the sampler")
     p.set_defaults(fn=cmd_visualize)
 
+    p = sub.add_parser("export-web", help="export browser draw-your-own-z demo")
+    p.add_argument("--checkpoint", required=True,
+                   help="run_dir/checkpoints of a train-dcgan run")
+    p.add_argument("--out-dir", required=True)
+    _add_device_arg(p, "the golden image")
+    p.set_defaults(fn=cmd_export_web)
+
     p = sub.add_parser("combine-stats", help="merge sharded track stats")
     p.add_argument("stats_files", nargs="+")
     p.add_argument("--out-dir", required=True)
@@ -988,6 +1100,48 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device_arg(p, "the GIF frames' resize (K2)")
     p.set_defaults(fn=cmd_sample_frames)
 
+    p = sub.add_parser("explorer", help="latent explorer web app")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--media-dir", default="/tmp/gifgan_explorer")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--auth-token", default=None,
+                   help="require Authorization: Bearer <token>. ?token= is "
+                        "also accepted for browser convenience, but URLs "
+                        "with embedded secrets leak via history/referrers/"
+                        "proxy logs — prefer the header off-localhost")
+    p.add_argument("--warmup", action="store_true",
+                   help="run the sampler once before serving")
+    p.add_argument("--int8", action="store_true",
+                   help="serve the int8-quantized generator (ops/quant.py: "
+                        "int8 tensor-core products)")
+    p.add_argument("--int8-calib", type=int, default=0,
+                   help="with --int8: static activation scales from N "
+                        "calibration batches")
+    p.add_argument("--int8-float-last", action="store_true",
+                   help="with --int8: keep the tanh output layer in f32 "
+                        "(mixed precision)")
+    _add_tls_args(p)
+    _add_device_arg(p, "the sampler")
+    p.set_defaults(fn=cmd_explorer)
+
+    p = sub.add_parser("webcam-serve", help="webcam demo HTTP service")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--out-dir", default="/tmp/gifgan_webcam")
+    p.add_argument("--paths-dir", default=None)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8081)
+    p.add_argument("--num-steps", type=int, default=1200)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--auth-token", default=None,
+                   help="require Authorization: Bearer <token> on /animate")
+    p.add_argument("--warmup", action="store_true",
+                   help="run one inversion before serving")
+    _add_tls_args(p)
+    _add_device_arg(p, "the inversion")
+    p.set_defaults(fn=cmd_webcam_serve)
+
     p = sub.add_parser("eval-fad",
                        help="Fréchet activation distance between two image "
                             "dirs under a trained image-D embedding")
@@ -1022,6 +1176,14 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device_arg(p, "the detector and the ranking")
     p.set_defaults(fn=cmd_face_detect)
 
+    p = sub.add_parser("survey-serve",
+                       help="host exported survey samples + collect ratings")
+    p.add_argument("--sample-dir", required=True)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8082)
+    _add_tls_args(p)
+    p.set_defaults(fn=cmd_survey_serve)
+
     p = sub.add_parser(
         "survey-pairs",
         help="randomized A/B pair manifest + MTurk CSV from an exported "
@@ -1036,6 +1198,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="prepended to file names in pairs.csv (the hosted "
                         "base URL for an external MTurk HIT)")
     p.set_defaults(fn=cmd_survey_pairs)
+
+    p = sub.add_parser(
+        "ckpt-downgrade",
+        help="TF V2 bundle (or V1) -> V1 TensorSlice file, no TF needed "
+             "(reference utils/downgrade_tf_checkpoint.py)")
+    p.add_argument("--input-prefix", required=True,
+                   help="TF checkpoint prefix (path to .index's prefix, "
+                        "or a V1 file)")
+    p.add_argument("--output", required=True, help="output V1 file path")
+    p.set_defaults(fn=cmd_ckpt_downgrade)
+
+    p = sub.add_parser("ckpt-inspect",
+                       help="list keys/shapes/dtypes of a checkpoint "
+                            "(ours or a TF bundle)")
+    p.add_argument("path", help="gifgan checkpoint dir or TF prefix")
+    p.set_defaults(fn=cmd_ckpt_inspect)
     return ap
 
 

@@ -308,9 +308,10 @@ def _capture_steps(total: int, sections) -> set:
 
 def invert_images(params, state, targets, cfg: DCGANConfig,
                   icfg: InvertConfig, seed: int = 0, progress_sections=None,
-                  device=None):
+                  device=None, z0=None):
+    """z0: the starting latents (B, z_dim); None draws them from `seed`."""
     return invert(image_problem(params, state, targets, cfg, icfg, device),
-                  icfg, seed=seed, progress_sections=progress_sections)
+                  icfg, seed=seed, z0=z0, progress_sections=progress_sections)
 
 
 def invert_video_joint(params, state, video_frames, cfg: DCGANConfig,

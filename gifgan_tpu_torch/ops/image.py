@@ -1,10 +1,10 @@
 """Image transforms (gifgan_tpu/ops/image.py:15-56) and the sample-grid
-PNG writer.
+PNG encoder.
 
 The transforms take tensors and return tensors on the same device;
 `resize_bilinear` is jax.image.resize(..., "linear") with its weights,
 which low-pass filter on a downscale (a triangle widened by the scale),
-not F.interpolate's two-tap bilinear. `write_png` needs only zlib and
+not F.interpolate's two-tap bilinear. `encode_png` needs only zlib and
 struct: the card's machine has no imaging library.
 """
 
@@ -95,8 +95,9 @@ def denorm_u8(x) -> np.ndarray:
     return np.clip(np.round((x + 1.0) * 127.5), 0, 255).astype(np.uint8)
 
 
-def write_png(path: str, image: np.ndarray) -> None:
-    """(H, W, C) uint8, C in {1, 3, 4} -> an 8-bit PNG (no filtering)."""
+def encode_png(image: np.ndarray) -> bytes:
+    """(H, W, C) uint8, C in {1, 3, 4} (or (H, W)) -> the bytes of an 8-bit
+    PNG (no filtering)."""
     image = np.ascontiguousarray(image, dtype=np.uint8)
     if image.ndim == 2:
         image = image[..., None]
@@ -109,9 +110,13 @@ def write_png(path: str, image: np.ndarray) -> None:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """`image` as a PNG file (encode_png)."""
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color,
-                                             0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6))
-                + chunk(b"IEND", b""))
+        f.write(encode_png(image))

@@ -5,7 +5,8 @@ on tiny flags: the reference's workflow (README "Cookbook"), image GAN ->
 video GAN on top of it -> GIF wall, its int8 deployment (quantize-export ->
 sample-wall --quantized), and its latent tooling (train-dcgan -> invert /
 z-extract -> derive-paths -> invert --input-paths), write what they
-should."""
+should. The data, evaluation, serving and checkpoint commands are held
+against the JAX CLI's on the same inputs, their parsers flag by flag."""
 
 import json
 import os
@@ -736,3 +737,167 @@ def test_eval_track_rate_equals_the_jax_cli(cascade_xml, tmp_path, capsys):
     got, want = _both(capsys, argv)
     assert got == want
     assert "glyphs: 2/2 (100.0%)" in got and "noise: 0/2 (0.0%)" in got
+
+
+# ---------------------------------------------------------------------------
+# The serving and checkpoint commands (export-web, explorer, webcam-serve,
+# survey-serve, ckpt-downgrade, ckpt-inspect): their parsers against the
+# JAX CLI's, flag by flag, and their output against the JAX commands'.
+# ---------------------------------------------------------------------------
+
+SERVE_COMMANDS = {"export-web": True, "explorer": True, "webcam-serve": True,
+                  "survey-serve": False, "ckpt-downgrade": False,
+                  "ckpt-inspect": False}
+TF_REF = os.path.join(os.path.dirname(__file__), "fixtures", "tf_ref_dcgan",
+                      "ref.ckpt")
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _jax_subparsers(monkeypatch):
+    """The JAX CLI builds its parser inside main(): catch it at parse."""
+    import argparse
+
+    def catch(self, *a, **kw):
+        raise _Parsed(self)
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", catch)
+        with pytest.raises(_Parsed) as e:
+            _jax_main(["ckpt-inspect", "x"])
+    return _choices(e.value.args[0])
+
+
+def _choices(parser):
+    import argparse
+
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return sub.choices
+
+
+def _flags(p):
+    return {a.dest: (tuple(a.option_strings), type(a).__name__, a.default,
+                     a.type, a.choices, a.required, a.nargs, a.const)
+            for a in p._actions if a.dest != "help"}
+
+
+@pytest.mark.parametrize("command", sorted(SERVE_COMMANDS))
+def test_serve_and_ckpt_parsers_equal_the_jax_cli(command, monkeypatch):
+    """Each flag's names, action, default, type, choices, required and
+    nargs equal the JAX command's; the commands that touch the card add
+    --device (default None: the card)."""
+    want = _flags(_jax_subparsers(monkeypatch)[command])
+    got = _flags(_choices(cli.build_parser())[command])
+    if SERVE_COMMANDS[command]:
+        assert got.pop("device") == (("--device",), "_StoreAction", None,
+                                     None, None, False, None, None)
+    assert got == want
+
+
+def test_the_port_has_26_of_the_27_commands(monkeypatch):
+    want = set(_jax_subparsers(monkeypatch))
+    got = set(_choices(cli.build_parser()))
+    assert len(want) == 27 and len(got) == 26
+    assert want - got == {"bench"}
+
+
+@pytest.mark.parametrize("case", ["inspect_run", "inspect_tf", "downgrade"])
+def test_ckpt_commands_equal_the_jax_cli(case, img_run, tmp_path, capsys):
+    from gifgan_tpu_torch.core.ckpt_tools import read_tf_checkpoint
+
+    out = str(tmp_path / "v1.ckpt")
+    argv = {"inspect_run": ["ckpt-inspect", img_run],
+            "inspect_tf": ["ckpt-inspect", TF_REF],
+            "downgrade": ["ckpt-downgrade", "--input-prefix", TF_REF,
+                          "--output", out]}[case]
+    got, want = _both(capsys, argv, ())
+    assert got == want
+    if case == "inspect_run":
+        assert "params/generator/h1_deconv/w  (5, 5, 32, 64)  float32" in got
+        assert got.splitlines()[-1].startswith("total parameters: ")
+    elif case == "inspect_tf":
+        assert len(got.splitlines()) == 48
+        assert "g_h1/w  float32  (5, 5, 32, 64)" in got
+    else:
+        assert got == f"wrote V1 TensorSlice checkpoint: {out}\n"
+        assert len(read_tf_checkpoint(out)) == 48
+
+
+def test_export_web_through_the_cli(img_run, tmp_path, capsys):
+    """export-web on a train-dcgan run through cli.main: the demo's four
+    files; weights.json is the JAX package's generator_to_json of the
+    run's stored arrays, byte for byte; the golden image is the run's
+    generator on the golden z (generator_forward_reference within one grey
+    level)."""
+    from gifgan_tpu.core.config import DCGANConfig as JDCGANConfig
+    from gifgan_tpu.serve.web_export import generator_to_json
+    from gifgan_tpu_torch.core.tree import unflatten
+    from gifgan_tpu_torch.serve.web_export import generator_forward_reference
+
+    out = str(tmp_path / "t")
+    assert cli.main(["export-web", "--checkpoint", img_run, "--out-dir", out,
+                     "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith(
+        f"browser demo exported to {out}; serve it and open draw.html")
+    assert sorted(os.listdir(out)) == ["draw.html", "generator.js",
+                                       "golden.json", "weights.json"]
+    tree = unflatten(ckpt.load_flat(img_run))
+    with open(os.path.join(out, "weights.json")) as f:
+        text = f.read()
+    assert text == generator_to_json(
+        tree["params"]["generator"], tree["state"]["generator"],
+        JDCGANConfig(output_size=32, z_dim=16, gf_dim=8, df_dim=8))
+    with open(os.path.join(out, "golden.json")) as f:
+        golden = json.load(f)
+    ref = generator_forward_reference(json.loads(text), golden["z"])
+    u8 = np.clip(np.round(255.0 * (ref + 1.0) / 2.0), 0, 255).astype(int)
+    assert golden["shape"] == [32, 32, 3]
+    assert np.abs(u8.ravel() - np.asarray(golden["image_u8"])).max() <= 1
+
+
+@pytest.mark.parametrize("command", ["explorer", "webcam-serve"])
+def test_services_refuse_to_start_without_cuda(command, img_run, tmp_path,
+                                               monkeypatch, capsys):
+    """Without CUDA the command raises before it listens; with --device cpu
+    it builds its service (explorer: the int8 sampler with one calibration
+    batch, warmed; webcam: a 2-step backend, warmed) and hands it to
+    serve(), replaced here by a stub that drives one request."""
+    from gifgan_tpu_torch.serve import explorer, webcam
+
+    argv = [command, "--checkpoint", img_run, "--port", "0"]
+    argv += (["--media-dir", str(tmp_path / "m"), "--int8", "--int8-calib",
+              "1", "--batch-size", "4", "--warmup"]
+             if command == "explorer" else
+             ["--out-dir", str(tmp_path / "w"), "--num-steps", "2",
+              "--batch-size", "2", "--warmup"])
+    served = []
+
+    def stub(service, **kw):
+        if command == "explorer":
+            served.append(service.random_faces())
+        else:
+            served.append(service.animate(
+                np.zeros((32, 32, 3), np.uint8)))
+        served.append(kw)
+
+    module = explorer if command == "explorer" else webcam
+    monkeypatch.setattr(module, "serve", stub)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+    assert served == []
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    result, kw = served
+    assert kw["port"] == 0 and kw["host"] == "127.0.0.1"
+    if command == "explorer":
+        assert result["response"] == "success"
+        assert len(os.listdir(tmp_path / "m")) == 36
+        assert kw["static_dir"].endswith(os.path.join("serve", "static"))
+    else:
+        assert np.isfinite(result["final_loss"])
+        assert os.listdir(tmp_path / "w") == ["req_0"]
+    assert "warm" in capsys.readouterr().out

@@ -2,6 +2,7 @@
 imports jax or gifgan_tpu, and its entry points refuse to fall back to the
 CPU when CUDA is absent."""
 
+import json
 import os
 import subprocess
 import sys
@@ -32,7 +33,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 68, out.stdout
+    assert int(n) >= 73, out.stdout
     assert bad == "[]", bad
 
 
@@ -57,8 +58,15 @@ def _entry_points():
     from gifgan_tpu_torch.eval import fad, track_rate
     from gifgan_tpu_torch.track import flow_gather, haar
 
+    from gifgan_tpu_torch.core import ckpt_tools
+    from gifgan_tpu_torch.models import dcgan
+    from gifgan_tpu_torch.serve import explorer, web_export, webcam
+
     frames = np.zeros((4, 48, 48, 3), np.uint8)
     track = [Detection(8, 8, 40, 40, i) for i in range(4)]
+    gp, gs = dcgan.init(torch.Generator(), DCGANConfig(output_size=16,
+                                                       gf_dim=1, df_dim=1),
+                        device="cpu")
 
     return {
         "resolve_device": lambda: resolve_device(),
@@ -177,6 +185,25 @@ def _entry_points():
         "cli_face_detect": lambda: cli.main(
             ["face-detect", "--image", "/none.png", "--cascade",
              "/none.xml"]),
+        # the services refuse before they listen
+        "explorer.serve": lambda: explorer.serve(explorer.ExplorerCore(
+            explorer.dcgan_sampler(gp, gs, DCGANConfig()), 100, "/none"),
+            port=0, background=True),
+        "webcam.serve": lambda: webcam.serve(webcam.WebcamBackend(
+            gp, gs, DCGANConfig(), "/none"), port=0, background=True),
+        "cli_explorer": lambda: cli.main(
+            ["explorer", "--checkpoint", "/none"]),
+        "cli_webcam_serve": lambda: cli.main(
+            ["webcam-serve", "--checkpoint", "/none"]),
+        "cli_export_web": lambda: cli.main(
+            ["export-web", "--checkpoint", "/none", "--out-dir", "/none"]),
+        "generator_from_json": lambda: web_export.generator_from_json(
+            json.dumps({"format": web_export.FORMAT, "layers": [],
+                        "z_dim": 1, "output_size": 16, "c_dim": 3,
+                        "gf_dim": 1})),
+        "import_reference_dcgan": lambda: ckpt_tools.import_reference_dcgan(
+            os.path.join(REPO, "tests", "fixtures", "tf_ref_dcgan",
+                         "ref.ckpt"), DCGANConfig()),
     }
 
 
