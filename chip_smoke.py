@@ -14,7 +14,9 @@ Phases, one report line each, any failed check raising:
             widen or scale), beside torch.index_select; then the same at
             train-dcgan's shape (case=stills: 64 rows of 64x64x3, the
             corpus's frames as stills), with the launch floor (a
-            one-element add_ in a graph of as many calls) as an aside;
+            one-element add_ in a graph of as many calls) as an aside and
+            the floor of K1's own chain (K1 on one 16-byte row in a graph
+            of as many calls) beside its bound;
 5. K2       the resize + normalize kernel at the feed's shape ((1024, 256,
             256, 3) uint8 -> 64x64, scaled), on a float32 non-square case,
             on unaligned rows (W*C = 363, and the feed's shape one byte
@@ -48,6 +50,17 @@ Phases, one report line each, any failed check raising:
             flagship width from one converted state (losses, weights);
 9. serve    sample-wall requests of 64 videos at the flagship width
             (bench.py's _flagship config, random weights from --seed);
+9a. profile one warm train_chunk_ids step (B = 64 clips at the flagship
+            width, K1 gathering its frames) through core/profile.py
+            (trace, then summarize_trace), the process's first capture:
+            K1's rows in the summary as many as it launched, total_us
+            within 1 % of the same capture's key_averages() device total
+            and under the step's wall time; the device time by category
+            and the idle share. Then bench: `python -m gifgan_tpu_torch
+            bench` in a process of its own (bench.py: 3 timed train_chunk
+            calls of 80 flagship steps on frames made on the card): its
+            last line parses, with the JAX bench's metric and unit and a
+            finite value above 0, printed beside the nvidia-smi line;
 9b. workflow the reference's workflow through the port's CLI, in process
             (gifgan_tpu_torch.cli.main), at the flagship width: train-dcgan
             (--device-corpus, 12 steps in chunks of 4: K1 once a step) ->
@@ -170,17 +183,20 @@ Phases, one report line each, any failed check raising:
 
 The launch counts are zeroed just before each of serve, the three
 workflow commands, serve_int8, invert and recurrent (no kernel of the four
-is on their paths, and they report their counts), train, prep, track and
-feed and read just after, and so around each step of dataprep, eval and
+is on their paths, and they report their counts), train, profile, prep,
+track and feed and read just after (bench runs in its own process and
+launches none of the four), and so around each step of dataprep, eval and
 serve_web that touches the card (the kernels line gives them per step). Then a
 `kernels` JSON line, the nvidia-smi line, and as the last line {"ok":
 true, "device": {...}}. Without CUDA it
-exits 2 and prints no result. --profile adds a torch.profiler table of one
-video training step (train), one image-DCGAN step (workflow), one
-request's int8 and bf16 float sample (serve_int8), one inversion step
-(invert), one full-width recurrent step (recurrent), 16 frames through
-the gather flow (dataprep) and the track rate of 2 glyph clips (eval), and
-cProfile's table of the track phase's dispatcher thread.
+exits 2 and prints no result. --profile adds a core/profile.py table of
+one image-DCGAN step (workflow), one request's int8 and bf16 float sample
+(serve_int8), one inversion step (invert), one full-width recurrent step
+(recurrent), one detect_clips dispatch of a track source file (track: K3's
+trace rows as many as its launches), one feed batch (feed: K2's, the
+same), 16 frames through the gather flow (dataprep) and the track rate of
+2 glyph clips (eval), and cProfile's table of the track phase's dispatcher
+thread.
 """
 
 from __future__ import annotations
@@ -209,6 +225,7 @@ import torch.nn.functional as F
 from gifgan_tpu_torch import cli
 from gifgan_tpu_torch.core import checkpoint as ckpt
 from gifgan_tpu_torch.core import interop
+from gifgan_tpu_torch.core import profile as tprofile
 from gifgan_tpu_torch.core.config import (DCGANConfig, InvertConfig,
                                           RecurrentImageConfig, TrackConfig,
                                           TrainConfig, VidGANConfig,
@@ -329,6 +346,12 @@ TRACK_RATE_CLIPS, GLYPH_CLIPS, SURVEY_SAMPLES = 64, 16, 8
 # survey ratings posted
 EXPLORER_REPEATS, EXPLORER_TOL, EXPLORER_LOAD = 3, 1e-4, 8
 WEBCAM_REQUESTS, WEBCAM_PATHS, SURVEY_RATINGS = 2, ("smile", "frown"), 8
+# K1's chain floor: one row of this many bytes (one 16-byte vector)
+ROW_FLOOR_BYTES = 16
+# profile: summarize_trace's device total against key_averages(); the time
+# limits of bench (its flagship run takes about half a minute) and of a
+# profile_child
+PROFILE_AGREE, BENCH_TIMEOUT_S, CHILD_TIMEOUT_S = 0.01, 600, 300
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the H100 SXM data sheet's dense int8 tensor-core rate
 INT8_OPS = 1979e12
@@ -537,20 +560,34 @@ def phase_k1_stills(corpus, seed):
     # as many calls
     one = torch.zeros(1, device="cuda")
     floor_ms = graph_ms(lambda t: t.add_(1.0), [(one,)] * len(sets))
+    # the floor of K1's own chain (launch -> id load -> row load -> store):
+    # K1 on one 16-byte row (n = m = 1, d = 16), in a graph of as many calls
+    row = torch.arange(ROW_FLOOR_BYTES, dtype=torch.uint8,
+                       device="cuda").view(1, -1)
+    row_idx = torch.zeros(1, dtype=torch.int64, device="cuda")
+    check(torch.equal(gather_rows_scaled(row, row_idx),
+                      gather_rows_scaled_plain(row, row_idx)),
+          "K1 on one 16-byte row equals its plain version")
+    row_floor_ms = graph_ms(gather_rows_scaled,
+                            [(row, row_idx)] * len(sets))
     unique = int(torch.unique(idx.clamp(0, n - 1)).numel())
     nbytes = unique * d + BATCH * d * 4 + BATCH * 8
     bound_ms = max(nbytes / HBM_BYTES_PER_S,
                    2 * BATCH * d / F32_FLOPS) * 1e3
     kernel_ms = min(ms, ms2)
+    floor_share = max(bound_ms, row_floor_ms) / kernel_ms
     say("K1", case="stills", rows=BATCH, row_bytes=d, max_abs_err=err,
         tolerance=2.0 ** -23, unique_rows=unique,
         kernel_ms=f"{ms:.5f},{ms2:.5f}", plain_ms=f"{plain_ms:.5f}",
         bound_ms=f"{bound_ms:.5f}", bound_bytes=nbytes,
         bound_share=f"{bound_ms / kernel_ms:.3f}",
-        aside_launch_floor_ms=f"{floor_ms:.5f}")
+        aside_launch_floor_ms=f"{floor_ms:.5f}",
+        one_row_floor_ms=f"{row_floor_ms:.5f}",
+        share_of_max_bound_floor=f"{floor_share:.3f}")
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes",
-            "launch_floor_ms": floor_ms}
+            "launch_floor_ms": floor_ms, "one_row_floor_ms": row_floor_ms,
+            "share_of_max_bound_floor": floor_share}
 
 
 def k2_needed_bytes(n, h, w, c, oh, ow, element_size):
@@ -1146,7 +1183,8 @@ def phase_track(xml, seed, workdir, profile=False):
     """The track entry point: source GIFs -> run_directory with the cascade
     file and no injected detector -> crop GIFs. `profile` adds cProfile's
     view of this thread, the dispatcher that owns the detector (the workers'
-    threads are not in it)."""
+    threads are not in it), and a core/profile.py table of one
+    detect_clips dispatch (profile_child)."""
     in_dir = os.path.join(workdir, "track_in")
     out_dir = os.path.join(workdir, "track_out")
     os.makedirs(in_dir)
@@ -1228,6 +1266,8 @@ def phase_track(xml, seed, workdir, profile=False):
     check(max(shapes) == (1, TRACK_BUCKET, TRACK_BUCKET),
           f"K4's largest image in track is the {TRACK_BUCKET}-px bucket "
           f"phase K4 times: {max(shapes)}")
+    if profile:
+        profile_child("track", xml, os.path.join(in_dir, "src0.gif"))
     return crop_paths, launches
 
 
@@ -1686,8 +1726,7 @@ def phase_serve_int8(ts, cfg, seed, workdir, vid_ckpt, profile=False):
         **{f"sample_ms_{k}": f"{v:.3f}" for k, v in sample_ms.items()})
     if profile:
         for k in ("int8_static", "float_bf16"):
-            profile_step(f"sample_{k}", lambda: times[k](z),
-                         groups=SAMPLE_GROUPS)
+            profile_step(f"sample_{k}", lambda: times[k](z))
     rows = _contraction_times(q, z, cfg)
     for r in rows:
         say("serve_int8", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
@@ -2366,59 +2405,114 @@ def phase_recurrent(seed, workdir, smi, profile=False):
     return launches
 
 
-# kernel groups of a profile table, by substrings of the kernel's name
-TRAIN_GROUPS = {"conv_gemm": ("xmma", "gemm", "conv", "cudnn", "wgrad",
-                              "dgrad", "fprop"),
-                "gather_k1": ("gather_rows_scaled",)}
-# an int8 request: the _int_mm products; the copies (im2col, pads, dtype
-# casts: PyTorch's direct_copy kernels); the max|x| reductions
-TRACK_GROUPS = {"k3": ("haar_stages",), "k4": ("lk_refine",),
-                "conv": ("conv", "cudnn", "xmma", "gemm")}
-SAMPLE_GROUPS = {"gemm": ("xmma", "gemm", "cutlass", "conv", "cudnn"),
-                 "copy_cast": ("copy",), "reduce": ("reduce",)}
+def _self_device_us(e):           # named self_cuda_time_total before 2.4
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
 
 
-def profile_step(name, step, groups=TRAIN_GROUPS):
-    """torch.profiler over one call of `step` (one warm training step or
-    request): its wall time, device busy time and idle share, the device
-    time by kernel group and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile as prof
+def _launches_without_device_row(log_dir):
+    """Kernel launches (the host's cudaLaunchKernel rows) of the newest
+    capture under `log_dir` whose kernel has no device row: what the
+    capture lost."""
+    events = tprofile.newest_events(log_dir)
+    seen = {e.get("args", {}).get("correlation") for e in events
+            if e.get("cat") in tprofile.DEVICE_CATS}
+    return sum(1 for e in events if e.get("cat") == "cuda_runtime"
+               and "LaunchKernel" in e.get("name", "")
+               and e.get("args", {}).get("correlation") not in seen)
 
-    with prof(activities=[ProfilerActivity.CPU,
-                          ProfilerActivity.CUDA]) as p:
-        t = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
 
-    def self_dev(e):              # named self_cuda_time_total before 2.4
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    # device-side rows only: an aten op's row repeats its kernels' time
-    rows = [e for e in p.key_averages() if self_dev(e) > 0
-            and e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_total = sum(self_dev(e) for e in rows) / 1e3
-    say("profile", step=name, step_wall_ms=f"{wall:.2f}",
-        device_busy_ms=f"{dev_total:.3f}",
-        idle_share=f"{max(0.0, 1 - dev_total / wall):.3f}",
-        kernel_launches=sum(e.count for e in rows))
-    split = {g: [0.0, 0] for g in (*groups, "other")}
+def profile_step(name, step, top=15):
+    """One call of `step` (one warm training step, batch or request) under
+    core/profile.py's trace, read back by its summarize_trace: the wall
+    time, the device busy time (`total_us`) beside the same capture's
+    key_averages() device total, the idle share, the device time and
+    launches by category, and the `top` rows. Returns (summary with every
+    row, wall ms, key_averages us, launches by category)."""
+    with tempfile.TemporaryDirectory() as log_dir:
+        with tprofile.trace(log_dir) as p:
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        s = tprofile.summarize_trace(log_dir, top=10 ** 9)
+        lost = _launches_without_device_row(log_dir)
+    rows = [e for e in p.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and _self_device_us(e) > 0]
+    kav_us = sum(_self_device_us(e) for e in rows)
+    calls = collections.Counter()
     for e in rows:
-        g = next((g for g, keys in groups.items()
-                  if any(k in e.key for k in keys)), "other")
-        split[g][0] += self_dev(e) / 1e3
-        split[g][1] += e.count
+        calls[tprofile.category(e.key)] += e.count
+    busy = s["total_us"] / 1e3
+    say("profile", step=name, step_wall_ms=f"{wall:.2f}",
+        device_busy_ms=f"{busy:.3f}",
+        key_averages_device_ms=f"{kav_us / 1e3:.3f}",
+        idle_share=f"{max(0.0, 1 - busy / wall):.3f}",
+        kernel_launches=sum(calls.values()),
+        launches_without_device_row=lost)
     say("profile", step=name,
-        **{f"{g}_ms": f"{v[0]:.3f}" for g, v in split.items()},
-        **{f"{g}_launches": v[1] for g, v in split.items()})
-    rows.sort(key=lambda e: -self_dev(e))
-    for e in rows[:15]:
-        say("profile", step=name, kernel=repr(e.key[:150]), calls=e.count,
-            device_ms=f"{self_dev(e) / 1e3:.3f}")
+        **{f"{c}_ms": f"{us / 1e3:.3f}" for c, us in s["by_category"].items()},
+        **{f"{c}_launches": n for c, n in calls.items()})
+    for n, us, pct in s["ops"][:top]:
+        say("profile", step=name, kernel=repr(n[:150]),
+            device_ms=f"{us / 1e3:.3f}", pct=f"{pct:.1f}")
+    return s, wall, kav_us, calls
 
 
-def phase_train(ts, cfg, tcfg, corpus, seed, profile):
+def profile_launches(name, wrapper, step):
+    """profile_step of one call that launches a hand-written kernel: its
+    rows are in the summary, with time, as many as the wrapper counted.
+    Returns profile_step's summary, wall ms and key_averages us."""
+    before = wrapper.launches
+    s, wall, kav_us, calls = profile_step(name, step)
+    n, rows = wrapper.launches - before, calls[wrapper.__name__]
+    us = dict((k, v) for k, v, _ in s["ops"]).get(wrapper.__name__, 0)
+    check(n > 0 and rows == n and us > 0,
+          f"{name}: {wrapper.__name__}'s trace rows ({rows}, {us} us) "
+          f"equal its {n} launches")
+    say("profile", step=name, kernel=wrapper.__name__, launches=n,
+        trace_rows=rows, device_us=f"{us:.3f}")
+    return s, wall, kav_us
+
+
+def profile_child(what, *args):
+    """profile_launches of one feed batch ("feed": the seed, the crop GIFs)
+    or of one detect_clips dispatch of the track phase's detector
+    ("track": the cascade, a source GIF), in a process of its own: on the
+    card's machine a capture that is not the first of its process has lost
+    kernel rows (PERF.md section 7), and these captures count the rows."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--capture", what, *map(str, args)], cwd=REPO,
+                         capture_output=True, text=True,
+                         timeout=CHILD_TIMEOUT_S)
+    print(out.stdout, end="", flush=True)
+    check(out.returncode == 0, f"the {what} capture exits 0: "
+                               f"{out.stderr[-2000:]}")
+
+
+def _capture(what, *args):
+    """profile_child's process: one warm call (the kernel's load, the
+    detector's plan), then its capture."""
+    if what == "feed":
+        seed, *crops = args
+        paths = (crops * FEED_PATHS)[:FEED_PATHS]
+        name, wrapper = "feed_batch", resize_normalize
+        run = lambda: list(clip_batches_from_files(
+            paths, BATCH, CLIP_LEN, CLIP_SIZE, epochs=1, seed=int(seed)))
+    else:
+        xml, gif = args
+        det = tpipe._default_detector(TrackConfig(), xml, "device", DEVICE)
+        gray = tpipe._to_gray64(read_gif(gif))
+        name, wrapper = "track_detect_clips", haar_stages
+        run = lambda: det.detect_clips([gray])
+    run()
+    torch.cuda.synchronize()
+    profile_launches(name, wrapper, run)
+    return 0
+
+
+def phase_train(ts, cfg, tcfg, corpus, seed):
     g = torch.Generator(device="cuda").manual_seed(seed + 4)
     ids = torch.randint(0, N_CLIPS, (K_STEPS, BATCH), device="cuda",
                         generator=g)
@@ -2455,11 +2549,66 @@ def phase_train(ts, cfg, tcfg, corpus, seed, profile):
         d_loss=",".join(f"{x:.5f}" for x in m["d_loss"].tolist()),
         g_loss=",".join(f"{x:.5f}" for x in m["g_loss"].tolist()),
         launches=launches)
-    if profile:
-        profile_step("train", lambda: vid.train_chunk_ids(
-            ts, ids[:1], z[:1], g, corpus.data, cfg, tcfg,
-            corpus.fold_sample_fn))
     return launches
+
+
+def phase_profile(ts, cfg, tcfg, corpus, seed):
+    """One warm train_chunk_ids step (K1 gathers its frames) through
+    core/profile.py: trace -> summarize_trace. K1's rows are in the
+    summary, `total_us` agrees with the capture's key_averages() device
+    total within PROFILE_AGREE and lies under the step's wall time."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    ids = torch.randint(0, N_CLIPS, (1, BATCH), device=DEVICE, generator=g)
+    z = torch.rand(1, BATCH, cfg.z_input_size, device=DEVICE,
+                   generator=g) * 2 - 1
+    step = lambda: vid.train_chunk_ids(ts, ids, z, g, corpus.data, cfg,
+                                       tcfg, corpus.fold_sample_fn)
+    step()                                        # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    s, wall, kav_us = profile_launches("train", gather_rows_scaled, step)
+    launches = read_counts()
+    total = s["total_us"]
+    check(launches["gather_rows_scaled"] == 1,
+          f"K1 launched once in the profiled step: {launches}")
+    check(abs(total - kav_us) <= PROFILE_AGREE * kav_us,
+          f"total_us {total:.1f} within {PROFILE_AGREE:.0%} of "
+          f"key_averages' {kav_us:.1f}")
+    check(0 < total < wall * 1e3, f"total_us {total:.1f} under the step's "
+                                  f"wall {wall * 1e3:.1f} us")
+    say("profile", step="train_step", total_us=f"{total:.1f}",
+        key_averages_us=f"{kav_us:.1f}",
+        agree=f"{abs(total - kav_us) / max(kav_us, 1e-9):.5f}",
+        wall_us=f"{wall * 1e3:.1f}",
+        idle_share=f"{1 - total / (wall * 1e3):.4f}",
+        by_category=json.dumps({c: round(us, 3) for c, us
+                                in s["by_category"].items()}),
+        launches=launches)
+    return launches
+
+
+def phase_bench(smi):
+    """`python -m gifgan_tpu_torch bench` in a process of its own, as a
+    user runs it: its last line is the JAX bench's JSON line."""
+    torch.cuda.empty_cache()      # give this process's cached blocks back
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "gifgan_tpu_torch", "bench"],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S)
+    for line in out.stdout.splitlines():
+        if line:
+            say("cli", command="bench", out=line)
+    check(out.returncode == 0, f"bench exits 0: {out.returncode} "
+                               f"{out.stderr[-2000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    check(res["metric"] == "vid_dcgan_train_steps_per_sec_b64_64x64x16"
+          and res["unit"] == "steps/sec",
+          f"bench's metric and unit are the JAX bench's: {res}")
+    check(math.isfinite(res["value"]) and res["value"] > 0,
+          f"bench's value finite and above 0: {res}")
+    say("bench", steps_per_sec=res["value"], vs_baseline=res["vs_baseline"],
+        compile_cache=res["compile_cache"], nvidia_smi=repr(smi),
+        seconds=f"{time.perf_counter() - t:.1f}")
 
 
 def source_clip(seed):
@@ -2565,8 +2714,9 @@ def phase_prep(seed, workdir):
     return crop_paths, launches
 
 
-def phase_feed(ts, cfg, tcfg, crop_paths, seed):
-    """Crop GIFs -> clip_batches_from_files (K2) -> train_chunk."""
+def phase_feed(ts, cfg, tcfg, crop_paths, seed, profile=False):
+    """Crop GIFs -> clip_batches_from_files (K2) -> train_chunk. `profile`
+    adds a core/profile.py table of one feed batch."""
     paths = (crop_paths * FEED_PATHS)[:FEED_PATHS]
     n = BATCH * CLIP_LEN
     reset_counts()
@@ -2604,6 +2754,8 @@ def phase_feed(ts, cfg, tcfg, crop_paths, seed):
         train_ms_per_step=f"{step_ms:.2f}",
         d_loss=",".join(f"{x:.5f}" for x in m["d_loss"].tolist()),
         launches=launches)
+    if profile:
+        profile_child("feed", seed, *crop_paths)
     return launches
 
 
@@ -2866,7 +3018,7 @@ def phase_dataprep(xml, seed, workdir, detect_sets, track_out,
         short = TrackConfig(flow_backend="jax", min_frame_count=10,
                             min_total_detections=3)   # with the launches
         profile_step("process_video_jax", lambda: process_video(
-            frames[:16], detector, short, TrackStats()), groups=TRACK_GROUPS)
+            frames[:16], detector, short, TrackStats()))
 
     # the batched gather detector on the detect phase's clips
     gather = BatchedGatherHaarDetector(xml, min_neighbors=3, device=DEVICE)
@@ -3011,8 +3163,7 @@ def phase_eval(xml, seed, workdir, ts, cfg, profile=False):
         clips = [np.repeat(np.repeat(glyph_gif_clip(seed + i), 2, 1), 2, 2)
                  for i in range(2)]
         face_track_rate(clips[:1], det)                   # warm
-        profile_step("eval_track_rate", lambda: face_track_rate(clips, det),
-                     groups=TRACK_GROUPS)
+        profile_step("eval_track_rate", lambda: face_track_rate(clips, det))
 
     # face-detect on a 360x480 glyph frame
     frames, boxes = source_clip(seed + 80)
@@ -3447,11 +3598,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--capture", nargs="+", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it runs on the card",
               file=sys.stderr)
         return 2
+    if args.capture:
+        return _capture(*args.capture)
     t0 = time.perf_counter()
     smi = phase_card()
     phase_build()
@@ -3475,6 +3629,11 @@ def main(argv=None) -> int:
     ts = vid.init_train_state(torch.Generator().manual_seed(args.seed), cfg,
                               tcfg, device="cuda")
     phase_serve(ts, cfg)
+    # the first capture of the process: on the card, a capture that follows
+    # some others (--profile) has lost kernel rows (PERF.md section 7)
+    new_paths = {"profile": {"train_step": phase_profile(ts, cfg, tcfg,
+                                                         corpus, args.seed)}}
+    phase_bench(smi)
     # the workflow's runs stay for the eval phase
     wf_dir = tempfile.TemporaryDirectory()
     workdir = wf_dir.name
@@ -3487,15 +3646,14 @@ def main(argv=None) -> int:
                  os.path.join(workdir, "img", "checkpoints"), ts, cfg, smi,
                  args.profile)
     phase_recurrent(args.seed, workdir, smi, args.profile)
-    launches = {"train": phase_train(ts, cfg, tcfg, corpus, args.seed,
-                                     args.profile)}
-    new_paths = {}
+    launches = {"train": phase_train(ts, cfg, tcfg, corpus, args.seed)}
     with tempfile.TemporaryDirectory() as workdir:
         _, launches["prep"] = phase_prep(args.seed, workdir)
         detect_sets = phase_detect(xml, args.seed)
         crop_paths, launches["track"] = phase_track(xml, args.seed, workdir,
                                                         args.profile)
-        launches["feed"] = phase_feed(ts, cfg, tcfg, crop_paths, args.seed)
+        launches["feed"] = phase_feed(ts, cfg, tcfg, crop_paths, args.seed,
+                                      args.profile)
         t = time.perf_counter()
         new_paths["dataprep"] = phase_dataprep(
             xml, args.seed, workdir, detect_sets,

@@ -5,11 +5,12 @@ The commands `train-dcgan`, `train-vid`, `train-recurrent`, `sample-wall`,
 `derive-paths`, `visualize`, `export-web`, `combine-stats`, `scrape`,
 `bulk-resize`, `video-to-gif`, `sample-frames`, `explorer`,
 `webcam-serve`, `eval-fad`, `eval-track-rate`, `face-detect`,
-`survey-serve`, `survey-pairs`, `ckpt-downgrade` and `ckpt-inspect`, with
-the flags of the JAX package's (gifgan_tpu/cli.py), plus `--device` where
-a command touches the card: it runs on the CUDA card unless `--device
-cpu` is given. Not here yet: `bench` and the mesh flags
-(`--data-parallel`, `--fsdp*`, `--tensor-parallel`, `--seq-parallel`).
+`survey-serve`, `survey-pairs`, `bench`, `ckpt-downgrade` and
+`ckpt-inspect` (all 27 of the JAX package's), with the flags of the JAX
+package's (gifgan_tpu/cli.py), plus `--device` where a command touches
+the card: it runs on the CUDA card unless `--device cpu` is given. Not
+here yet: the mesh flags (`--data-parallel`, `--fsdp*`,
+`--tensor-parallel`, `--seq-parallel`).
 `invert`, `z-extract` and `train-recurrent` write GIFs where the JAX
 package writes mp4s; `invert`, `face-detect` and the image directories of
 `train-dcgan` and `eval-fad` are read with cv2, as are the webcam
@@ -724,6 +725,13 @@ def cmd_survey_pairs(args) -> None:
           f" -> {os.path.join(args.sample_dir, 'pairs.json')} + pairs.csv")
 
 
+def cmd_bench(args) -> None:
+    """The flagship train-step benchmark (bench.py): one JSON line."""
+    from gifgan_tpu_torch import bench
+
+    bench.main([] if args.device is None else ["--device", args.device])
+
+
 def cmd_export_web(args) -> None:
     """Export the image generator as a self-contained browser demo dir
     (weights.json + golden fixture + draw.html/generator.js — the
@@ -1198,6 +1206,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="prepended to file names in pairs.csv (the hosted "
                         "base URL for an external MTurk HIT)")
     p.set_defaults(fn=cmd_survey_pairs)
+
+    p = sub.add_parser("bench")
+    _add_device_arg(p, "the benchmark")
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser(
         "ckpt-downgrade",

@@ -61,6 +61,7 @@ def _entry_points():
     from gifgan_tpu_torch.core import ckpt_tools
     from gifgan_tpu_torch.models import dcgan
     from gifgan_tpu_torch.serve import explorer, web_export, webcam
+    from gifgan_tpu_torch import bench
 
     frames = np.zeros((4, 48, 48, 3), np.uint8)
     track = [Detection(8, 8, 40, 40, i) for i in range(4)]
@@ -201,6 +202,8 @@ def _entry_points():
             json.dumps({"format": web_export.FORMAT, "layers": [],
                         "z_dim": 1, "output_size": 16, "c_dim": 3,
                         "gf_dim": 1})),
+        "run_bench": lambda: bench.run_bench(),
+        "cli_bench": lambda: cli.main(["bench"]),
         "import_reference_dcgan": lambda: ckpt_tools.import_reference_dcgan(
             os.path.join(REPO, "tests", "fixtures", "tf_ref_dcgan",
                          "ref.ckpt"), DCGANConfig()),

@@ -1,0 +1,232 @@
+"""gifgan_tpu_torch/core/profile.py against gifgan_tpu/core/profile.py:
+step timing, the epoch estimate, sync over trees, and summarize_trace on a
+real CPU capture and on hand-written traces."""
+
+import gzip
+import json
+import os
+from typing import NamedTuple
+
+import numpy as np
+import pytest
+import torch
+
+from gifgan_tpu.core import profile as jprofile
+from gifgan_tpu_torch.core import profile as tprofile
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+TIMES = [0.5, 0.25, 0.125, 0.2, 0.0625]
+
+
+@pytest.mark.parametrize("skip", [0, 1, 3, 10])
+def test_step_times_summary_equals_the_jax_one(skip):
+    got, want = tprofile.StepTimes(), jprofile.StepTimes()
+    got.times, want.times = list(TIMES), list(TIMES)
+    assert got.summary(skip) == want.summary(skip)
+
+
+def test_estimate_epoch_hours_equals_the_jax_one():
+    for batches in (1, 3165, 10_000):
+        assert (tprofile.estimate_epoch_hours(TIMES, batches)
+                == jprofile.estimate_epoch_hours(TIMES, batches))
+    assert abs(tprofile.estimate_epoch_hours([1.0, 1.0], 3600) - 1.0) < 1e-9
+
+
+def test_step_times_measure_syncs_a_result():
+    st = tprofile.StepTimes()
+    for _ in range(3):
+        with st.measure() as out:
+            out["result"] = {"d_loss": torch.ones(4) * 2}
+    s = st.summary(skip=1)
+    assert s["n"] == 2 and s["steps_per_sec"] > 0
+
+
+class _Pair(NamedTuple):
+    p: object
+    q: object
+
+
+def test_sync_walks_nested_trees_in_the_jax_order():
+    import jax
+
+    arrs = [np.full(2, i, np.float32) for i in range(6)]
+    tree = {"b": [arrs[0], (arrs[1], None)], "a": {"y": arrs[2],
+                                                   "x": arrs[3]},
+            "c": _Pair(p=arrs[4], q=arrs[5])}
+    got = tprofile._leaves(tree)
+    want = jax.tree_util.tree_leaves(tree)
+    assert [id(x) for x in got] == [id(x) for x in want]
+
+    tensors = {"m": _Pair(p=[torch.ones(3)], q=torch.zeros(())),
+               "a": (None, torch.arange(4.0))}
+    tprofile.sync(tensors)
+    for empty in ({}, [], (), None, {"a": None}, [torch.empty(0)]):
+        tprofile.sync(empty)
+
+
+def test_summarize_trace_of_a_real_cpu_capture(tmp_path):
+    """The counterpart of tests/test_profile_ckpt_tools.py's: a CPU trace
+    of tanh(x @ w) three times; dot takes most of the time and a container
+    op (aten::matmul) is not counted again through the op it calls
+    (aten::mm)."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((128, 256), generator=g)
+    w = torch.rand((256, 256), generator=g)
+
+    def f(x):
+        for _ in range(3):
+            x = torch.tanh(x @ w)
+        return x
+
+    f(x)
+    with tprofile.trace(str(tmp_path)):
+        f(x)
+    files = [n for _, _, ns in os.walk(tmp_path) for n in ns]
+    assert len(files) == 1 and files[0].endswith(".pt.trace.json.gz")
+
+    s = tprofile.summarize_trace(str(tmp_path), top=10)
+    assert s["total_us"] > 0
+    cats = s["by_category"]
+    assert max(cats, key=cats.get) == "dot"
+    names = [n for n, _, _ in s["ops"]]
+    assert "aten::matmul" in names and "aten::mm" not in names
+    assert abs(sum(p for _, _, p in s["ops"]) - 100.0) < 1e-6
+    assert abs(sum(cats.values()) - s["total_us"]) < 1e-6
+
+
+def _x(cat, name, ts, dur, tid=1, **args):
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+            "pid": 1, "tid": tid, "args": args}
+
+
+def _write(path, events, mtime=None):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with gzip.open(path, "wt") as f:
+        json.dump({"traceEvents": events}, f)
+    if mtime is not None:
+        os.utime(path, (mtime, mtime))
+
+
+GEMM = "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64"
+DEVICE_EVENTS = [
+    {"ph": "M", "name": "thread_name", "pid": 1, "tid": 7,
+     "args": {"name": "stream 7"}},
+    # host rows: not counted once the trace has device rows
+    _x("cpu_op", "aten::matmul", 0, 50), _x("cpu_op", "aten::mm", 1, 40),
+    _x("cuda_runtime", "cudaLaunchKernel", 2, 5),
+    _x("user_annotation", "step", 0, 100),
+    _x("kernel", GEMM, 10, 12.5, tid=7, grid=[1, 2, 1]),
+    _x("kernel", GEMM, 30, 7.5, tid=7),
+    _x("kernel", "void gather_rows_scaled_vec16(unsigned char const*, "
+       "long const*, float*, long, long)", 40, 4.0, tid=7),
+    _x("kernel", "sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_"
+       "nhwckrsc_nhwc", 50, 9.0, tid=7),
+    _x("kernel", "void at::native::vectorized_elementwise_kernel<4, "
+       "at::native::CUDAFunctor_add<float>, at::detail::Array<char*, 3> >"
+       "(int, at::native::CUDAFunctor_add<float>, at::detail::Array<char*,"
+       " 3>)", 60, 3.0, tid=7),
+    _x("kernel", "void at::native::reduce_kernel<512, 1, at::native::"
+       "ReduceOp<float, at::native::MeanOps<float, float, float, float>, "
+       "unsigned int, float, 4> >(at::native::ReduceOp<float, at::native::"
+       "MeanOps<float, float, float, float>, unsigned int, float, 4>)",
+       70, 2.0, tid=7),
+    _x("gpu_memcpy", "Memcpy HtoD (Pageable -> Device)", 80, 1.5, tid=7),
+    _x("gpu_memset", "Memset (Device)", 90, 0.5, tid=7),
+    {"ph": "s", "cat": "ac2g", "name": "ac2g", "id": 1, "pid": 1, "tid": 1,
+     "ts": 2},
+    {"ph": "i", "name": "Record Window End", "ts": 100, "pid": "", "tid": ""},
+]
+
+
+def test_summarize_trace_counts_the_device_rows(tmp_path):
+    """A hand-written capture with kernels, a memcpy, a memset and nested
+    host rows: exactly the device rows count, once each, the hand-written
+    kernel under its own name; an older capture is not read."""
+    _write(str(tmp_path / "a" / "old.pt.trace.json.gz"),
+           [_x("kernel", GEMM, 0, 1000.0)], mtime=1_000_000)
+    _write(str(tmp_path / "b" / "new.pt.trace.json.gz"), DEVICE_EVENTS)
+    s = tprofile.summarize_trace(str(tmp_path))
+    assert s["total_us"] == 40.0
+    assert list(s["by_category"].items()) == [
+        ("dot", 20.0), ("convolution", 9.0), ("gather_rows_scaled", 4.0),
+        ("elementwise", 3.0), ("reduce", 2.0), ("copy", 1.5),
+        ("other", 0.5)]
+    assert [(n, us) for n, us, _ in s["ops"]] == [
+        (GEMM, 20.0), (DEVICE_EVENTS[8]["name"], 9.0),
+        ("gather_rows_scaled", 4.0), (DEVICE_EVENTS[9]["name"], 3.0),
+        (DEVICE_EVENTS[10]["name"], 2.0),
+        ("Memcpy HtoD (Pageable -> Device)", 1.5), ("Memset (Device)", 0.5)]
+    assert [p for _, _, p in s["ops"]][:3] == [50.0, 22.5, 10.0]
+    first = s["op_details"][0]
+    assert first == {"name": GEMM, "us": 20.0, "pct": 50.0,
+                     "category": "dot", "tflops": 0.0, "gbps": 0.0,
+                     "source": ""}
+    top2 = tprofile.summarize_trace(str(tmp_path), top=2)
+    assert len(top2["ops"]) == 2 and top2["total_us"] == 40.0
+
+
+def test_summarize_trace_counts_outermost_host_ops_without_device_rows(
+        tmp_path):
+    """A CPU capture: each aten op that no other op on its thread encloses
+    counts once; an op on another thread overlapping in time counts too."""
+    events = [
+        _x("cpu_op", "aten::conv2d", 0, 100),
+        _x("cpu_op", "aten::convolution", 1, 99),
+        _x("cpu_op", "aten::_convolution", 2, 97),
+        _x("cpu_op", "aten::add_", 100, 10),        # starts where conv ends
+        _x("cpu_op", "aten::empty", 105, 1),        # inside add_
+        _x("cpu_op", "aten::mm", 50, 30, tid=2),
+        _x("user_annotation", "step", 0, 200),
+        _x("python_function", "f.py(3): f", 0, 200),
+    ]
+    _write(str(tmp_path / "cpu.pt.trace.json.gz"), events)
+    s = tprofile.summarize_trace(str(tmp_path))
+    assert s["total_us"] == 140.0
+    assert s["by_category"] == {"convolution": 100.0, "dot": 30.0,
+                                "elementwise": 10.0}
+    assert [n for n, _, _ in s["ops"]] == ["aten::conv2d", "aten::mm",
+                                           "aten::add_"]
+
+
+def test_summarize_trace_keys_equal_the_jax_result(tmp_path):
+    _write(str(tmp_path / "jax" / "x.trace.json.gz"),
+           [{"ph": "X", "name": "dot.1", "ts": 0, "dur": 5.0, "pid": 1,
+             "tid": 1, "args": {}}])
+    _write(str(tmp_path / "torch" / "x.pt.trace.json.gz"), DEVICE_EVENTS)
+    want = jprofile.summarize_trace(str(tmp_path / "jax"))
+    got = tprofile.summarize_trace(str(tmp_path / "torch"))
+    assert set(got) == set(want)
+    assert set(got["op_details"][0]) == set(want["op_details"][0])
+    assert len(got["ops"][0]) == len(want["ops"][0]) == 3
+    with pytest.raises(FileNotFoundError):
+        tprofile.summarize_trace(str(tmp_path / "none"))
+
+
+@pytest.mark.parametrize("name, want", [
+    ("void gather_rows_scaled_scalar(unsigned char const*)",
+     "gather_rows_scaled"),
+    ("void resize_rows<unsigned char, true>(unsigned char const*)",
+     "resize_normalize"),
+    ("void haar_stages_kernel<double>(double const*)", "haar_stages"),
+    ("lk_refine_kernel(float const*)", "lk_refine"),
+    ("sm90_xmma_dgrad_implicit_gemm_bf16bf16", "convolution"),
+    ("void cutlass::Kernel2<cutlass_80_tensorop_s16816gemm>", "dot"),
+    ("void at::native::unrolled_elementwise_kernel<at::native::"
+     "direct_copy_kernel_cuda(at::TensorIteratorBase&)>", "copy"),
+    ("void at::native::index_elementwise_kernel<128, 4>", "gather"),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel",
+     "elementwise"),
+    ("aten::linear", "dot"),
+    ("Memset (Device)", "other"),
+])
+def test_category(name, want):
+    assert tprofile.category(name) == want
