@@ -51,8 +51,9 @@ Phases, one report line each, any failed check raising:
 9. serve    sample-wall requests of 64 videos at the flagship width
             (bench.py's _flagship config, random weights from --seed);
 9a. profile one warm train_chunk_ids step (B = 64 clips at the flagship
-            width, K1 gathering its frames) through core/profile.py
-            (trace, then summarize_trace), the process's first capture:
+            width, K1 gathering its frames from 512 random clips) through
+            core/profile.py (trace, then summarize_trace), the first
+            capture of a process of its own (profile_child):
             K1's rows in the summary as many as it launched, total_us
             within 1 % of the same capture's key_averages() device total
             and under the step's wall time; the device time by category
@@ -180,13 +181,35 @@ Phases, one report line each, any failed check raising:
             phase's export (8 ratings, /results); ckpt-inspect of the run
             and of the committed TF bundle, ckpt-downgrade of that bundle
             read back bit-equal to its expected.npz.
+18. mesh    the data axis of the mesh (core/mesh.py, parallel/): (a) one
+            NCCL rank drives train_vid_dcgan(mesh=) at the flagship widths
+            in float32 with TF32 off, DP and FSDP (MESH_STEPS steps in
+            chunks of 2), against the no-mesh run of the same seed: the
+            losses and parameters at the step-2 checkpoint within
+            MESH_PARITY_TOL, the step-4 ones printed, K1 once a step; then
+            train_chunk_ids in bf16 on each path, ms/step and peak bytes,
+            and the bytes a flagship step moves over the data axis
+            (mesh_bytes); (b) two ranks on the one card over gloo (NCCL
+            refuses two ranks on one GPU), started by torch.distributed.run
+            (mesh_rank), run the CLI: train-vid --data-parallel 2
+            --device-corpus --chunk 1 --steps-limit MESH_CLI_STEPS in
+            float32 (and --fsdp where gloo takes its collectives; the line
+            says which ran), then sample-wall --data-parallel 2, float and
+            --int8, on its checkpoint; each against the same command on one
+            rank in this process: the first step's losses within
+            MESH_CLI_TOL (the later steps printed), one metrics record a
+            step (rank 0 alone writes), the walls' frames equal, K1 once a
+            step on each rank; each rank's seconds, peak bytes and
+            collective bytes. Both float32 parts run with TF32 off and the
+            deterministic kernels (exact_f32).
 
 The launch counts are zeroed just before each of serve, the three
 workflow commands, serve_int8, invert and recurrent (no kernel of the four
 is on their paths, and they report their counts), train, profile, prep,
 track and feed and read just after (bench runs in its own process and
 launches none of the four), and so around each step of dataprep, eval and
-serve_web that touches the card (the kernels line gives them per step). Then a
+serve_web that touches the card and each run of mesh (the kernels line
+gives them per step). Then a
 `kernels` JSON line, the nvidia-smi line, and as the last line {"ok":
 true, "device": {...}}. Without CUDA it
 exits 2 and prints no result. --profile adds a core/profile.py table of
@@ -220,6 +243,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from gifgan_tpu_torch import cli
@@ -270,7 +294,12 @@ from gifgan_tpu_torch.track.haar_device import (DeviceHaarDetector,
                                                 letterbox_stack)
 from gifgan_tpu_torch.track.pipeline import process_video
 from gifgan_tpu_torch.track.stats import TrackStats
-from gifgan_tpu_torch.train import early_stop, gan, vid
+from gifgan_tpu_torch.train import early_stop, gan, loops, vid
+from gifgan_tpu_torch.core.mesh import make_mesh
+from gifgan_tpu_torch.core.tree import flatten
+from gifgan_tpu_torch.parallel import fsdp as tfsdp
+from gifgan_tpu_torch.parallel.distributed import initialize
+from gifgan_tpu_torch.parallel.dp import make_sharded_step, shard_train_state
 from gifgan_tpu_torch.train import recurrent as rtrain
 from gifgan_tpu_torch.train.gan import _differentiable, _grads
 
@@ -352,6 +381,18 @@ ROW_FLOOR_BYTES = 16
 # limits of bench (its flagship run takes about half a minute) and of a
 # profile_child
 PROFILE_AGREE, BENCH_TIMEOUT_S, CHILD_TIMEOUT_S = 0.01, 600, 300
+# the train capture's process: its corpus of random clips, and the prefix
+# of the line that hands its launch counts back
+PROFILE_CLIPS, PROFILE_LAUNCHES = 512, "[profile] launches_json="
+# mesh: steps of the one-rank runs (the parameters gated at the step-2
+# checkpoint, the step-4 ones printed), chunks timed in bf16 (K steps
+# each), the two-rank CLI run's steps (a chunk a step: a flagship step
+# after one Adam update moves its losses by up to ~3e-3 for a 1e-7
+# relative change of the gradients, so only the first step is gated), the
+# synthetic clips of both, and the gates: (a) against the no-mesh run, (b)
+# the first step's losses against one rank's
+MESH_STEPS, MESH_TIMED_CHUNKS, MESH_CLI_STEPS, MESH_CLIPS = 4, 3, 8, 128
+MESH_PARITY_TOL, MESH_CLI_TOL, MESH_TIMEOUT_S = 1e-5, 1e-4, 600
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the H100 SXM data sheet's dense int8 tensor-core rate
 INT8_OPS = 1979e12
@@ -2477,11 +2518,13 @@ def profile_launches(name, wrapper, step):
 
 
 def profile_child(what, *args):
-    """profile_launches of one feed batch ("feed": the seed, the crop GIFs)
-    or of one detect_clips dispatch of the track phase's detector
-    ("track": the cascade, a source GIF), in a process of its own: on the
-    card's machine a capture that is not the first of its process has lost
-    kernel rows (PERF.md section 7), and these captures count the rows."""
+    """profile_launches of one warm flagship train step ("train": the
+    seed), of one feed batch ("feed": the seed, the crop GIFs) or of one
+    detect_clips dispatch of the track phase's detector ("track": the
+    cascade, a source GIF), in a process of its own: on the card's machine
+    a capture in a process that has run much else has lost kernel rows
+    (PERF.md sections 6 and 7), and these captures count the rows. Returns
+    the child's standard output, which it also prints."""
     out = subprocess.run([sys.executable, os.path.abspath(__file__),
                           "--capture", what, *map(str, args)], cwd=REPO,
                          capture_output=True, text=True,
@@ -2489,11 +2532,23 @@ def profile_child(what, *args):
     print(out.stdout, end="", flush=True)
     check(out.returncode == 0, f"the {what} capture exits 0: "
                                f"{out.stderr[-2000:]}")
+    return out.stdout
 
 
 def _capture(what, *args):
     """profile_child's process: one warm call (the kernel's load, the
     detector's plan), then its capture."""
+    if what == "train":
+        (seed,) = map(int, args)
+        cfg, tcfg = flagship()
+        ts = vid.init_train_state(torch.Generator().manual_seed(seed), cfg,
+                                  tcfg, device=DEVICE)
+        corpus = DeviceCorpus(np.random.default_rng(seed).integers(
+            0, 256, (PROFILE_CLIPS, CLIP_LEN, CLIP_SIZE, CLIP_SIZE, 3),
+            np.uint8), device=DEVICE)
+        launches = _profile_train(ts, cfg, tcfg, corpus, seed)
+        print(PROFILE_LAUNCHES + json.dumps(launches), flush=True)
+        return 0
     if what == "feed":
         seed, *crops = args
         paths = (crops * FEED_PATHS)[:FEED_PATHS]
@@ -2552,13 +2607,24 @@ def phase_train(ts, cfg, tcfg, corpus, seed):
     return launches
 
 
-def phase_profile(ts, cfg, tcfg, corpus, seed):
+def phase_profile(seed):
+    """The train step's capture (_profile_train) in a process of its own
+    (profile_child): a capture in this process, even its first, has lost
+    kernel rows on the card after the kernel phases (PERF.md section 6).
+    Returns the child's launch counts of the profiled step."""
+    out = profile_child("train", seed)
+    line = [x for x in out.splitlines() if x.startswith(PROFILE_LAUNCHES)]
+    check(len(line) == 1, "the train capture reports its launches")
+    return json.loads(line[0][len(PROFILE_LAUNCHES):])
+
+
+def _profile_train(ts, cfg, tcfg, corpus, seed):
     """One warm train_chunk_ids step (K1 gathers its frames) through
     core/profile.py: trace -> summarize_trace. K1's rows are in the
     summary, `total_us` agrees with the capture's key_averages() device
     total within PROFILE_AGREE and lies under the step's wall time."""
     g = torch.Generator(device=DEVICE).manual_seed(seed + 5)
-    ids = torch.randint(0, N_CLIPS, (1, BATCH), device=DEVICE, generator=g)
+    ids = torch.randint(0, corpus.n, (1, BATCH), device=DEVICE, generator=g)
     z = torch.rand(1, BATCH, cfg.z_input_size, device=DEVICE,
                    generator=g) * 2 - 1
     step = lambda: vid.train_chunk_ids(ts, ids, z, g, corpus.data, cfg,
@@ -3593,12 +3659,369 @@ def phase_serve_web(xml, seed, workdir):
         v1_bytes=os.path.getsize(v1), v1_bit_equal=True)
     return out
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """float32 without TF32, and the deterministic kernels (cuDNN's, and
+    PyTorch's deterministic index_put for the packed convs' weight
+    gathers; warn_only: ops without one warn), restored after. Without
+    them two runs of the same flagship steps on the card part by ~5e-3 in
+    the losses after one Adam update (PERF.md section 6)."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic,
+            torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = prev[:3]
+        torch.use_deterministic_algorithms(prev[3], warn_only=prev[4])
+
+
+def _f32(cfg):
+    return dataclasses.replace(
+        cfg, compute_dtype="float32",
+        image_gan=dataclasses.replace(cfg.image_gan, compute_dtype="float32"))
+
+
+def mesh_bytes(ts, tcfg, n=2):
+    """What one flagship step moves over the data axis, counted from the
+    state's leaves: the gradient all-reduce of DP (the vid-D's floats once,
+    the vid-G's once a G update), and under FSDP over n ranks the
+    all-gather of every sharded params and state leaf in each of the
+    step's updates, and the reduce-scatter of the sharded trainable
+    leaves."""
+    p = ts.params
+    count = lambda tree: sum(v.numel() for v in flatten(tree).values())
+    d, g = count(p["vid_discriminator"]), count(p["vid_generator"])
+    frozen = count(p["img_generator"]) + count(p["img_discriminator"])
+    shard = {k: tfsdp.shard_dim(k, v.shape, n, 2048)
+             for k, v in flatten(ts).items()}
+    flat = {k: v.numel() for k, v in flatten(ts).items()}
+    gathered = sum(v for k, v in flat.items() if shard[k] is not None
+                   and k.startswith(("params/", "state/")))
+    scattered = lambda role: sum(
+        v for k, v in flat.items()
+        if shard[k] is not None and k.startswith(f"opt_{role}/mu/"))
+    updates = tcfg.disc_updates + tcfg.gen_updates
+    return {"vid_d_floats": d, "vid_g_floats": g, "frozen_img_floats": frozen,
+            "grad_all_reduce_bytes": 4 * (d * tcfg.disc_updates
+                                          + g * tcfg.gen_updates),
+            "fsdp_all_gather_bytes": 4 * gathered * updates,
+            "fsdp_reduce_scatter_bytes": 4 * (
+                scattered("d") * tcfg.disc_updates
+                + scattered("g") * tcfg.gen_updates)}
+
+
+def _mesh_one_rank(seed, workdir, clips):
+    """(a): one NCCL rank drives train_vid_dcgan(mesh=) at the flagship
+    widths in float32 with TF32 off, DP and FSDP, against the no-mesh run;
+    then the bf16 flagship's ms/step on each path."""
+    initialize(f"localhost:{_free_port()}", num_processes=1, process_id=0)
+    try:
+        check(dist.get_backend() == "nccl", "one rank on the card is NCCL")
+        one = torch.ones(4, device=DEVICE)
+        dist.all_reduce(one)
+        check(float(one.sum()) == 4.0, "an NCCL all_reduce of one rank")
+        cfg, tcfg = flagship()
+        cfg32 = _f32(cfg)
+        runs, counts = {}, {}
+        with exact_f32():
+            for name, kw in (("none", {}), ("dp", {"mesh": make_mesh()}),
+                             ("fsdp", {"mesh": make_mesh(), "fsdp": True})):
+                run = os.path.join(workdir, f"one_rank_{name}")
+                tc = dataclasses.replace(tcfg, run_dir=run, seed=seed,
+                                         sample_every=0,
+                                         checkpoint_every=MESH_STEPS // 2)
+                reset_counts()
+                loops.train_vid_dcgan(None, cfg32, tc, clips_u8=clips,
+                                      chunk=MESH_STEPS // 2,
+                                      steps_limit=MESH_STEPS, device=DEVICE,
+                                      **kw)
+                torch.cuda.synchronize()
+                counts[name] = read_counts()
+                check(counts[name]["gather_rows_scaled"] == MESH_STEPS,
+                      f"{name}: K1 once a step: {counts[name]}")
+                runs[name] = (_records(run), [ckpt.load_flat(
+                    os.path.join(run, "checkpoints"), step) for step in
+                    (MESH_STEPS // 2, MESH_STEPS)])
+        base_recs, base_flat = runs["none"]
+        for name in ("dp", "fsdp"):
+            recs, flats = runs[name]
+            loss = max(abs(recs[0][k] - base_recs[0][k])
+                       for k in ("d_loss", "g_loss", "first_frame_loss"))
+            err = [max(float(np.abs(f[k].astype(np.float64) - b[k]).max())
+                       for k in b if k.startswith("params/"))
+                   for f, b in zip(flats, base_flat)]
+            check(loss <= MESH_PARITY_TOL and err[0] <= MESH_PARITY_TOL,
+                  f"{name} after {MESH_STEPS // 2} steps: losses {loss}, "
+                  f"params {err[0]} within {MESH_PARITY_TOL}")
+            say("mesh", case="one_rank_nccl_f32", path=name,
+                steps=MESH_STEPS // 2, loss_max_abs_err=loss,
+                param_max_abs_err=err[0],
+                step4_loss_max_abs_err=max(
+                    abs(recs[-1][k] - base_recs[-1][k])
+                    for k in ("d_loss", "g_loss", "first_frame_loss")),
+                step4_param_max_abs_err=err[1], launches=counts[name])
+
+        # the flagship's own dtype: ms/step of train_chunk_ids, K steps a
+        # chunk, on each path
+        ts0 = vid.init_train_state(torch.Generator().manual_seed(seed), cfg,
+                                   tcfg, device=DEVICE)
+        corpus = DeviceCorpus(clips, device=DEVICE)
+        g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+        ids = torch.randint(0, len(clips), (K_STEPS, BATCH), device=DEVICE,
+                            generator=g)
+        z = torch.rand(K_STEPS, BATCH, cfg.z_input_size, device=DEVICE,
+                       generator=g) * 2 - 1
+        static = dict(corpus_data=corpus.data, cfg=cfg, tcfg=tcfg,
+                      sample_fn=corpus.fold_sample_fn)
+        mesh = make_mesh()
+        timing = {}
+        for name in ("none", "dp", "fsdp"):
+            if name == "none":
+                ts = ts0
+                fn = lambda t, i, zz, gg: vid.train_chunk_ids(t, i, zz, gg,
+                                                              **static)
+            else:
+                sh = None
+                if name == "fsdp":
+                    ts, sh = tfsdp.place_and_shardings(mesh, ts0)
+                else:
+                    ts = shard_train_state(mesh, ts0)
+                fn = make_sharded_step(vid.train_chunk_ids, mesh,
+                                       static_args=static, batch_axis=1,
+                                       state_shardings=sh)
+            ts, m = fn(ts, ids, z, g)                       # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t = time.perf_counter()
+            for _ in range(MESH_TIMED_CHUNKS):
+                ts, m = fn(ts, ids, z, g)
+            float(m["d_loss"][-1])
+            torch.cuda.synchronize()
+            timing[name] = ((time.perf_counter() - t) * 1e3
+                            / (MESH_TIMED_CHUNKS * K_STEPS))
+            launches = read_counts()
+            check(launches["gather_rows_scaled"]
+                  == MESH_TIMED_CHUNKS * K_STEPS, f"bf16 {name}: K1 once a "
+                                                  f"step: {launches}")
+            check(all(math.isfinite(float(v[-1])) for v in m.values()),
+                  f"bf16 {name} metrics finite")
+            counts[f"bf16_{name}"] = launches
+            say("mesh", case="one_rank_nccl_bf16", path=name,
+                ms_per_step=f"{timing[name]:.3f}",
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=launches)
+        say("mesh", case="bytes_per_flagship_step", **mesh_bytes(ts0, tcfg))
+    finally:
+        dist.destroy_process_group()
+    return counts, timing
+
+
+MESH_MODEL_FLAGS = ["--output-size", "64", "--z-dim", "100", "--gf-dim", "64",
+                    "--df-dim", "64", "--compute-dtype", "float32",
+                    "--packed-c3"]
+
+
+def _mesh_plan(seed, workdir):
+    """(b)'s commands: train-vid DP, train-vid FSDP, then sample-wall,
+    float and int8, on the DP run's checkpoint; the one-rank reference of
+    each drops --data-parallel and --fsdp."""
+    train = (["train-vid", "--device-corpus", "--chunk", "1", "--steps-limit",
+              str(MESH_CLI_STEPS), "--dataset-size", str(MESH_CLIPS),
+              "--batch-size", str(BATCH), "--first-frame-loss-scalar", "1.0",
+              "--seed", str(seed)] + MESH_MODEL_FLAGS)
+    ck = os.path.join(workdir, "two_dp", "checkpoints")
+    wall = ["sample-wall", "--checkpoint", ck, "--num-batches", "1",
+            "--batch-size", str(BATCH), "--seed", str(seed)]
+    return [
+        ("train_vid_dp", train + ["--run-dir", os.path.join(workdir,
+                                                            "two_dp")],
+         ["--data-parallel", "2"]),
+        ("train_vid_fsdp", train + ["--run-dir", os.path.join(
+            workdir, "two_fsdp")], ["--data-parallel", "2", "--fsdp"]),
+        ("wall", wall + ["--out-dir", os.path.join(workdir, "two_wall")],
+         ["--data-parallel", "2"]),
+        ("wall_int8", wall + ["--int8", "--out-dir", os.path.join(
+            workdir, "two_wall_int8")], ["--data-parallel", "2"]),
+    ]
+
+
+def _fsdp_collectives_ok():
+    """Whether the two ranks' gloo group takes FSDP's all-gather and
+    reduce-scatter (staged through the host): "" or the error."""
+    from gifgan_tpu_torch.parallel.collectives import DataGroup
+
+    dg = DataGroup(None, dist.get_rank(), dist.get_world_size())
+    x = torch.arange(8, dtype=torch.float32, device=DEVICE)
+    try:
+        full = dg.all_gather(dg.rows(x), 0)
+        mean = dg.reduce_scatter_mean(x, 0)
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    if not (torch.equal(full, x) and torch.equal(mean, dg.rows(x))):
+        return "wrong values"
+    return ""
+
+
+def mesh_rank(plan_path):
+    """One rank of (b), started by torch.distributed.run: each planned
+    command through cli.main, launch counts zeroed before and read after;
+    writes rank<R>.json beside the plan."""
+    with open(plan_path) as f:
+        plan = json.load(f)
+    initialize()
+    rank = dist.get_rank()
+    report = {"backend": dist.get_backend(), "runs": {}}
+    fsdp_error = _fsdp_collectives_ok()
+    report["fsdp_collectives"] = fsdp_error or "ok"
+    meshes = []
+    made = cli._mesh_arg
+    cli._mesh_arg = lambda args: meshes.append(made(args)) or meshes[-1]
+    with exact_f32():
+        for name, argv in plan:
+            if "--fsdp" in argv and fsdp_error:
+                continue
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            report["runs"][name] = {
+                "seconds": time.perf_counter() - t,
+                "launches": read_counts(),
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "bytes": dict(meshes[-1].data_group.bytes)}
+    with open(os.path.join(os.path.dirname(plan_path),
+                           f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _wall_frames(out_dir):
+    names = sorted(os.listdir(out_dir), key=lambda n: int(n.split(".")[0]))
+    return np.stack([read_gif(os.path.join(out_dir, n)) for n in names])
+
+
+def _mesh_two_ranks(seed, workdir):
+    """(b): two ranks on the one card over gloo, started by
+    torch.distributed.run, run the CLI (mesh_rank); the same commands on
+    one rank in this process are the reference."""
+    plan = _mesh_plan(seed, workdir)
+    plan_path = os.path.join(workdir, "plan.json")
+    with open(plan_path, "w") as f:
+        json.dump([(name, argv + extra) for name, argv, extra in plan], f)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", os.path.join(REPO, "chip_smoke.py"),
+         "--mesh-rank", plan_path], cwd=REPO, timeout=MESH_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True)
+    if proc.returncode:
+        print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
+    check(proc.returncode == 0, f"the two ranks exit 0 "
+                                f"(rc {proc.returncode})")
+    seconds = time.perf_counter() - t
+    reports = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    ran = sorted(reports[0]["runs"])
+    say("mesh", case="two_ranks_gloo", backend=reports[0]["backend"],
+        fsdp_collectives=json.dumps(reports[0]["fsdp_collectives"]),
+        ran=",".join(ran), seconds=f"{seconds:.1f}")
+    counts = {}
+    for r, rep in enumerate(reports):
+        for name, run in rep["runs"].items():
+            counts[f"rank{r}_{name}"] = run["launches"]
+            if name.startswith("train_vid"):
+                check(run["launches"]["gather_rows_scaled"] == MESH_CLI_STEPS,
+                      f"rank {r} {name}: K1 once a step: {run['launches']}")
+            say("mesh", case="two_ranks_gloo", rank=r, run=name,
+                seconds=f"{run['seconds']:.2f}",
+                peak_bytes=run["peak_bytes"],
+                collective_bytes=json.dumps(run["bytes"]),
+                launches=run["launches"])
+
+    with exact_f32():
+        for name, argv, _ in plan:
+            if name not in ran:
+                continue
+            one = [os.path.join(workdir, "one_" + a[len(workdir) + 5:])
+                   if a.startswith(os.path.join(workdir, "two_"))
+                   and "checkpoints" not in a else a for a in argv]
+            reset_counts()
+            cli.main(one)
+            if name.startswith("train_vid"):
+                check(read_counts()["gather_rows_scaled"] == MESH_CLI_STEPS,
+                      f"one rank {name}: K1 once a step")
+                two = _records(os.path.join(workdir, f"two_{name[10:]}"))
+                ref = _records(os.path.join(workdir, f"one_{name[10:]}"))
+                check([r["step"] for r in two] == list(range(
+                    1, MESH_CLI_STEPS + 1)), f"{name}: one record a step "
+                                             f"(rank 0 alone writes)")
+                keys = ("d_loss", "d_loss_real", "d_loss_fake", "g_loss",
+                        "first_frame_loss")
+                gaps = [max(abs(a[k] - b[k]) for k in keys)
+                        for a, b in zip(two, ref)]
+                check(gaps[0] <= MESH_CLI_TOL, f"{name}: first step's "
+                      f"losses {gaps[0]} within {MESH_CLI_TOL} of one rank")
+                ms = [1e3 / r["steps_per_sec"] for r in two[1:]]
+                ms_one = [1e3 / r["steps_per_sec"] for r in ref[1:]]
+                say("mesh", case="two_ranks_gloo_f32", run=name,
+                    loss_gap_by_step=",".join(f"{x:.3g}" for x in gaps),
+                    ms_per_step_warm_median=f"{float(np.median(ms)):.1f}",
+                    one_rank_ms_per_step_warm_median=
+                    f"{float(np.median(ms_one)):.1f}")
+            else:
+                two = _wall_frames(os.path.join(workdir, f"two_{name}"))
+                ref = _wall_frames(os.path.join(workdir, f"one_{name}"))
+                diff = np.abs(two.astype(int) - ref.astype(int))
+                say("mesh", case="two_ranks_gloo_wall", run=name,
+                    gifs=len(two), differing_bytes=int((diff > 0).sum()),
+                    max_abs_diff=int(diff.max()))
+                check(two.shape == ref.shape and not diff.any(),
+                      f"{name}: the two-rank wall's frames equal one rank's")
+    return counts
+
+
+def phase_mesh(seed):
+    """The data axis of the mesh: (a) one NCCL rank, (b) two gloo ranks on
+    the card through the CLI. Returns the K1 launches of each run."""
+    t = time.perf_counter()
+    clips = synthetic_clips(MESH_CLIPS, length=CLIP_LEN, size=CLIP_SIZE)
+    with tempfile.TemporaryDirectory() as workdir:
+        counts, _ = _mesh_one_rank(seed, workdir, clips)
+        counts.update(_mesh_two_ranks(seed, workdir))
+    say("mesh", seconds=f"{time.perf_counter() - t:.1f}")
+    return counts
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--capture", nargs="+", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-rank", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it runs on the card",
@@ -3606,6 +4029,8 @@ def main(argv=None) -> int:
         return 2
     if args.capture:
         return _capture(*args.capture)
+    if args.mesh_rank:
+        return mesh_rank(args.mesh_rank)
     t0 = time.perf_counter()
     smi = phase_card()
     phase_build()
@@ -3629,10 +4054,7 @@ def main(argv=None) -> int:
     ts = vid.init_train_state(torch.Generator().manual_seed(args.seed), cfg,
                               tcfg, device="cuda")
     phase_serve(ts, cfg)
-    # the first capture of the process: on the card, a capture that follows
-    # some others (--profile) has lost kernel rows (PERF.md section 7)
-    new_paths = {"profile": {"train_step": phase_profile(ts, cfg, tcfg,
-                                                         corpus, args.seed)}}
+    new_paths = {"profile": {"train_step": phase_profile(args.seed)}}
     phase_bench(smi)
     # the workflow's runs stay for the eval phase
     wf_dir = tempfile.TemporaryDirectory()
@@ -3668,6 +4090,7 @@ def main(argv=None) -> int:
     say("serve_web", seconds=f"{time.perf_counter() - t:.1f}")
     wf_dir.cleanup()
     cascade_dir.cleanup()
+    new_paths["mesh"] = phase_mesh(args.seed)
 
     line = []
     for k in KERNELS:

@@ -9,8 +9,13 @@ The commands `train-dcgan`, `train-vid`, `train-recurrent`, `sample-wall`,
 `ckpt-inspect` (all 27 of the JAX package's), with the flags of the JAX
 package's (gifgan_tpu/cli.py), plus `--device` where a command touches
 the card: it runs on the CUDA card unless `--device cpu` is given. Not
-here yet: the mesh flags (`--data-parallel`, `--fsdp*`,
-`--tensor-parallel`, `--seq-parallel`).
+here: `--tensor-parallel` and `--seq-parallel` (tensor and sequence
+parallelism are not ported).
+
+`--data-parallel`/`--fsdp` run one process a rank, as torchrun starts
+them (`torchrun --nproc-per-node N -m gifgan_tpu_torch train-vid
+--data-parallel N [--fsdp] ...`): `main` joins the process group first
+(parallel/distributed.py initialize; inert in a single process).
 `invert`, `z-extract` and `train-recurrent` write GIFs where the JAX
 package writes mp4s; `invert`, `face-detect` and the image directories of
 `train-dcgan` and `eval-fad` are read with cv2, as are the webcam
@@ -24,6 +29,29 @@ import os
 import sys
 
 import numpy as np
+
+
+def _mesh_arg(args):
+    """--data-parallel semantics: 0 = all ranks (no mesh when there is only
+    one), 1 = explicitly no mesh, N>1 = N-way data parallel (N must equal
+    the world size, as the JAX mesh must cover its devices)."""
+    import torch.distributed as dist
+
+    from gifgan_tpu_torch.core.mesh import make_mesh
+
+    dp = getattr(args, "data_parallel", 0)
+    if dp == 1:
+        return None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if dp == 0 and world == 1:
+        return None
+    return make_mesh(data_parallel=dp)
+
+
+def _primary() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _dcgan_cfg(args):
@@ -72,6 +100,13 @@ def _add_train_args(p, batch=64):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--run-dir", required=True)
     p.add_argument("--steps-limit", type=int, default=None)
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="ranks on the mesh data axis (0=all, 1=no mesh)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3: shard params + Adam slots over the data "
+                        "axis (parallel/fsdp.py); needs a mesh")
+    p.add_argument("--fsdp-min-size", type=int, default=2048,
+                   help="leaves with fewer elements stay replicated")
     _add_device_arg(p, "the training run")
 
 
@@ -143,15 +178,14 @@ def cmd_train_dcgan(args) -> None:
     from gifgan_tpu_torch.train import loops
 
     cfg = _dcgan_cfg(args)
+    kw = dict(steps_limit=args.steps_limit, chunk=args.chunk,
+              device=args.device, mesh=_mesh_arg(args), fsdp=args.fsdp,
+              fsdp_min_size=args.fsdp_min_size)
     if args.device_corpus:
         loops.train_dcgan(None, cfg, _train_cfg(args),
-                          steps_limit=args.steps_limit, chunk=args.chunk,
-                          stills_u8=_stills_u8(args, cfg),
-                          device=args.device)
+                          stills_u8=_stills_u8(args, cfg), **kw)
         return
-    loops.train_dcgan(_stills_source(args, cfg), cfg, _train_cfg(args),
-                      steps_limit=args.steps_limit, chunk=args.chunk,
-                      device=args.device)
+    loops.train_dcgan(_stills_source(args, cfg), cfg, _train_cfg(args), **kw)
 
 
 def cmd_train_vid(args) -> None:
@@ -169,7 +203,9 @@ def cmd_train_vid(args) -> None:
                        first_frame_loss_scalar=args.first_frame_loss_scalar)
     kw = dict(image_gan_ckpt=args.image_gan_checkpoint,
               steps_limit=args.steps_limit, chunk=args.chunk,
-              auto_intervene=args.auto_intervene, device=args.device)
+              auto_intervene=args.auto_intervene, device=args.device,
+              mesh=_mesh_arg(args), fsdp=args.fsdp,
+              fsdp_min_size=args.fsdp_min_size)
 
     def clips_u8():
         """The whole (N, T, s, s, c) uint8 clip corpus."""
@@ -220,9 +256,10 @@ def cmd_train_vid(args) -> None:
 
 
 def cmd_train_recurrent(args) -> None:
-    """The JAX command's two quirks are kept: it builds the config without
-    --compute-dtype (float32 always), and the host path's batch factory
-    takes no epoch seed, so every epoch shuffles alike."""
+    """The JAX command's quirks are kept: it builds the config without
+    --compute-dtype (float32 always), the host path's batch factory takes
+    no epoch seed, so every epoch shuffles alike, and it accepts the mesh
+    flags (--data-parallel, --fsdp, --fsdp-min-size) and ignores them."""
     from gifgan_tpu_torch.core.config import RecurrentImageConfig
     from gifgan_tpu_torch.data.loader import batches_from_array
     from gifgan_tpu_torch.train import loops
@@ -272,6 +309,7 @@ def _vid_sample_fn(args):
     from gifgan_tpu_torch.serve.sampler import vid_sample_fn, vid_sample_fn_q
     from gifgan_tpu_torch.train import vid
 
+    mesh = _mesh_arg(args)
     if args.quantized:
         if args.int8 or args.int8_calib or args.int8_float_last:
             raise SystemExit(
@@ -282,13 +320,13 @@ def _vid_sample_fn(args):
         from gifgan_tpu_torch.ops import quant
 
         q, cfg = quant.load_artifact(args.checkpoint, device=args.device)
-        return cfg, vid_sample_fn_q(q, cfg)
+        return cfg, vid_sample_fn_q(q, cfg, mesh)
     cfg, ts = vid.load_vid_train_state(args.checkpoint, device=args.device)
     if args.int8:
         q, _ = vid.quantize_sampler(ts, cfg, calib_batches=args.int8_calib,
                                     float_last=args.int8_float_last)
-        return cfg, vid_sample_fn_q(q, cfg)
-    return cfg, vid_sample_fn(ts, cfg)
+        return cfg, vid_sample_fn_q(q, cfg, mesh)
+    return cfg, vid_sample_fn(ts, cfg, mesh)
 
 
 def cmd_sample_wall(args) -> None:
@@ -298,8 +336,10 @@ def cmd_sample_wall(args) -> None:
     n = gif_wall(sample_fn, cfg.z_input_size, args.out_dir,
                  batch_size=args.batch_size,
                  num_batches=None if args.continuous else args.num_batches,
-                 continuous=args.continuous, fps=args.fps, seed=args.seed)
-    print(f"wrote {n} gifs to {args.out_dir}")
+                 continuous=args.continuous, fps=args.fps, seed=args.seed,
+                 write=_primary())
+    if _primary():
+        print(f"wrote {n} gifs to {args.out_dir}")
 
 
 def cmd_quantize_export(args) -> None:
@@ -934,6 +974,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantized", action="store_true",
                    help="--checkpoint points at a quantize-export int8 "
                         "artifact instead of a train run")
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="shard the sampler batch over the mesh data axis "
+                        "(0=all ranks, 1=single device [default]; N>1 "
+                        "must equal the world size, like the train "
+                        "commands); N must divide --batch-size")
     _add_device_arg(p, "the sampler")
     p.set_defaults(fn=cmd_sample_wall)
 
@@ -1230,7 +1275,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from gifgan_tpu_torch.parallel.distributed import initialize
+
     args = build_parser().parse_args(argv)
+    initialize(device=getattr(args, "device", None))
     args.fn(args)
     return 0
 

@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gifgan_tpu_torch.core import interop
 from gifgan_tpu_torch.core.tree import SEP, flatten, like
@@ -186,15 +187,25 @@ class AsyncCheckpointer:
     training loop may go on updating its tensors; the npz write and the
     old-step removal run on the worker. One write is in flight at a time: a
     second `save` first waits for the previous one. A write's error is
-    raised by the next `save`, `wait` or `close`."""
+    raised by the next `save`, `wait` or `close`.
 
-    def __init__(self):
+    multihost=True (a run on a mesh): `save` goes through `save_multihost`
+    on the caller's thread, every rank calling it with the same (full)
+    state; rank 0 writes between two barriers."""
+
+    def __init__(self, multihost: bool = False):
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._pending = None
+        self.multihost = multihost
 
     def save(self, ckpt_dir: str, step: int, tree: Any,
              max_to_keep: int = 0):
         self.wait()
+        if self.multihost:
+            primary = _process_index() == 0
+            return save_multihost(
+                ckpt_dir, step, interop.to_jax_flat(tree) if primary else {},
+                max_to_keep=max_to_keep)
         host = interop.to_jax_flat(tree)
         self._pending = self._pool.submit(save, ckpt_dir, step, host,
                                           max_to_keep)
@@ -210,3 +221,32 @@ class AsyncCheckpointer:
             self.wait()
         finally:
             self._pool.shutdown(wait=True)
+
+
+def _process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def save_multihost(ckpt_dir: str, step: int, tree: Any, max_to_keep: int = 0,
+                   process_index: Optional[int] = None,
+                   barrier=None) -> Optional[str]:
+    """A replicated state's save from every process of a run: process 0
+    writes (one copy suffices on a shared filesystem) and every process
+    joins a barrier before AND after, so none races ahead into a restore of
+    a half-written step. Returns the step's path on process 0, else None.
+
+    process_index and barrier(name) are injectable for tests; the defaults
+    use the process group (no barrier in a single process)."""
+    if process_index is None:
+        process_index = _process_index()
+    if barrier is None:
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            barrier = lambda name: None
+        else:
+            barrier = lambda name: dist.barrier()
+    barrier(f"ckpt_pre_{step}")
+    path = None
+    if process_index == 0:
+        path = save(ckpt_dir, step, tree, max_to_keep=max_to_keep)
+    barrier(f"ckpt_post_{step}")
+    return path

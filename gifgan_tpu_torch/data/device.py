@@ -12,6 +12,14 @@ device, so the training loop ships only clip ids. Methods:
 Both clamp out-of-range ids to [0, N-1], as the kernel does. The JAX
 package's "matmul" method and "frames" layout are workarounds for the TPU's
 slow gathers and are not ported; nor is the TPU's padding of D to 4096.
+
+With a mesh (core/mesh.py) the corpus is uploaded whole to every rank's
+card, as the JAX package replicates it, and `sample(idx)` takes the global
+ids and gathers this rank's block of the last idx axis ((B,) ids -> its
+rows of the batch, (K, B) -> its columns), the counterpart of the JAX
+sample's output sharded over `data` along that axis. `sample_fn` and
+`fold_sample_fn` gather the ids they are given: a mesh step hands them the
+rank's ids (parallel/dp.py make_sharded_step).
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ class DeviceCorpus:
 
     def __init__(self, corpus_u8: np.ndarray, method: str = "kernel",
                  out_range: str = "tanh", layout: str = "clips",
-                 device=None):
+                 device=None, mesh=None):
         if corpus_u8.dtype != np.uint8:
             raise ValueError(f"corpus must be uint8, got {corpus_u8.dtype}")
         if method not in ("kernel", "take"):
@@ -46,6 +54,7 @@ class DeviceCorpus:
             raise ValueError("the gather kernel bakes the [-1,1] scale; use "
                              "method='take' for out_range='unit'")
         self.method, self.out_range, self.layout = method, out_range, layout
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.item_shape = tuple(corpus_u8.shape[1:])
         self.n = corpus_u8.shape[0]
@@ -85,7 +94,16 @@ class DeviceCorpus:
         return g.to(out_dtype) if out_dtype is not None else g
 
     def sample(self, idx) -> torch.Tensor:
-        """idx: integer array or tensor of corpus ids, any shape."""
+        """idx: integer array or tensor of corpus ids, any shape. With a
+        mesh: this rank's block of the last idx axis, which the mesh's
+        data axis must divide."""
         idx = torch.as_tensor(np.asarray(idx) if not isinstance(
             idx, torch.Tensor) else idx).to(self.device, torch.int64)
+        if self.mesh is not None:
+            n = self.mesh.shape["data"]
+            if idx.shape[-1] % n:
+                raise ValueError(
+                    f"the mesh data axis ({n}) must divide the id batch "
+                    f"({idx.shape[-1]})")
+            idx = self.mesh.data_group.rows(idx, idx.ndim - 1)
         return self._sample(self._data, idx)

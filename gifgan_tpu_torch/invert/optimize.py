@@ -20,13 +20,18 @@ The JAX package runs each chunk of steps as one `lax.scan`; here a chunk is
 an eager loop whose losses stay on the device until the chunk ends. Only z
 carries a gradient: the model tensors are plain tensors, so autograd
 computes no weight gradient. z0 is drawn U[-1, 1) from a torch generator
-seeded by an int (`initial_z`), not from a threefry key. The mesh
-placement of the JAX package (`shard_problem`, `mesh=`) is not here: one
-device.
+seeded by an int (`initial_z`), not from a threefry key.
+
+`mesh=` (core/mesh.py) runs an inversion data-parallel, as the JAX
+package's `shard_problem` does: each rank holds its rows of the targets,
+their activations and z (the model whole on every rank), the loss's batch
+mean covers the whole batch (parallel/collectives.py), and `invert`
+returns the whole z, gathered from the ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -40,6 +45,7 @@ from gifgan_tpu_torch.core.config import (DCGANConfig, InvertConfig,
 from gifgan_tpu_torch.core.rng import uniform_z
 from gifgan_tpu_torch.models import dcgan, vid_dcgan
 from gifgan_tpu_torch.ops import nn
+from gifgan_tpu_torch.parallel import collectives
 from gifgan_tpu_torch.train.gan import Adam, AdamState
 
 Tensor = torch.Tensor
@@ -47,10 +53,13 @@ Tensor = torch.Tensor
 
 class InversionProblem(NamedTuple):
     """One inversion: loss_fn(z) -> (scalar loss, generated images), with
-    the model and targets bound in, for z of `z_shape` on `device`."""
+    the model and targets bound in, for z of `z_shape` on `device`.
+    `group`: the data group of a problem placed by `shard_problem` (its
+    loss_fn then reads this rank's rows), None on one device."""
     loss_fn: Callable[[Tensor], Tuple[Tensor, Tensor]]
     z_shape: Tuple[int, ...]
     device: torch.device
+    group: Optional[collectives.DataGroup] = None
 
 
 def normalized_weights(icfg: InvertConfig) -> Dict[str, float]:
@@ -73,18 +82,20 @@ def _per_sample_mean(d: Tensor) -> Tensor:
 
 def _weighted_loss(gen_images, gen_acts, gen_logits, targets, target_acts,
                    w) -> Tensor:
+    """The weighted terms, each a per-sample mean and then a mean over the
+    logical batch (over the ranks of a sharded problem)."""
     loss = 0.0
     if w["pixel_l1"]:
-        loss = loss + w["pixel_l1"] * torch.mean(
+        loss = loss + w["pixel_l1"] * collectives.mean(
             _per_sample_mean(torch.abs(gen_images - targets)))
     if w["pixel_l2"]:
-        loss = loss + w["pixel_l2"] * torch.mean(
+        loss = loss + w["pixel_l2"] * collectives.mean(
             _per_sample_mean(torch.square(gen_images - targets)))
     if w["activation_l1"]:
-        loss = loss + w["activation_l1"] * torch.mean(
+        loss = loss + w["activation_l1"] * collectives.mean(
             _per_sample_mean(torch.abs(gen_acts - target_acts)))
     if w["activation_l2"]:
-        loss = loss + w["activation_l2"] * torch.mean(
+        loss = loss + w["activation_l2"] * collectives.mean(
             _per_sample_mean(torch.square(gen_acts - target_acts)))
     if w["generator_loss"]:
         loss = loss + w["generator_loss"] * nn.sigmoid_ce(
@@ -214,6 +225,40 @@ def _make_opt(icfg: InvertConfig, step: int) -> Adam:
     return Adam(_learning_rate(icfg, step), b1=0.5, b2=0.999, eps=1e-8)
 
 
+def _in_group(problem: InversionProblem):
+    """The context of a sharded problem's loss (parallel/collectives.py)."""
+    return (contextlib.nullcontext() if problem.group is None
+            else collectives.use(problem.group))
+
+
+def shard_problem(problem: InversionProblem, mesh, z0: Optional[Tensor] = None
+                  ) -> Tuple[InversionProblem, Optional[Tensor]]:
+    """Place an inversion problem for data-parallel execution: the model
+    whole on every rank, this rank's rows of the batch arrays (targets,
+    target activations, z0). The loss then runs in the mesh's data group,
+    so its batch mean is the whole batch's."""
+    group = mesh.data_group
+    n_data = mesh.shape["data"]
+    b = problem.z_shape[0]
+    if b % n_data:
+        raise ValueError(
+            f"the mesh data axis ({n_data}) must divide the inversion "
+            f"batch ({b}); pad the batch (z_finder already pads partial "
+            f"batches) or shrink the mesh")
+    # both problem kinds bind (targets, t_acts) by keyword; a new kind with
+    # other batch arrays must extend this placement
+    fn = problem.loss_fn
+    kw = dict(fn.keywords, targets=group.rows(fn.keywords["targets"]))
+    if kw["t_acts"] is not None:
+        kw["t_acts"] = group.rows(kw["t_acts"])
+    problem = problem._replace(
+        loss_fn=functools.partial(fn.func, *fn.args, **kw),
+        z_shape=(b // n_data,) + tuple(problem.z_shape[1:]), group=group)
+    if z0 is not None:
+        z0 = group.rows(_as_tensor(z0, problem.device))
+    return problem, z0
+
+
 def _run_chunk(problem: InversionProblem, z: Tensor, opt_state: AdamState,
                icfg: InvertConfig, first_step: int, n_steps: int,
                ) -> Tuple[Tensor, AdamState, np.ndarray]:
@@ -222,9 +267,10 @@ def _run_chunk(problem: InversionProblem, z: Tensor, opt_state: AdamState,
     losses = []
     for step in range(first_step, first_step + n_steps):
         zg = z.detach().requires_grad_(True)
-        with torch.enable_grad():
+        with torch.enable_grad(), _in_group(problem):
             loss, _ = problem.loss_fn(zg)
             (grad,) = torch.autograd.grad(loss, zg)
+            grad = collectives.local_gradient(grad)
         updates, opt_state = _make_opt(icfg, step).update({"z": grad},
                                                           opt_state)
         z = z + updates["z"]
@@ -241,15 +287,19 @@ def initial_z(shape, seed: int, device) -> Tensor:
 def invert(problem: InversionProblem, icfg: InvertConfig, seed: int = 0,
            z0: Optional[Tensor] = None,
            progress_sections: Optional[List[Tuple[int, int]]] = None,
-           ) -> Tuple[Tensor, np.ndarray, List[np.ndarray]]:
+           mesh=None) -> Tuple[Tensor, np.ndarray, List[np.ndarray]]:
     """Run the optimization: (z, loss history, progress frames).
 
     progress_sections: [(start_step, every)], the progress video's
     capture schedule, e.g. [(0, 1), (50, 5)]: every step early, sparser
     later. A chunk ends at each captured step; the last frames are added
-    whenever any capture is asked for."""
+    whenever any capture is asked for. mesh: shard the z batch and the
+    problem's batch arrays over the mesh's data axis (`shard_problem`);
+    z and the frames come back whole on every rank."""
     if z0 is None:
         z0 = initial_z(problem.z_shape, seed, problem.device)
+    if mesh is not None:
+        problem, z0 = shard_problem(problem, mesh, z0)
     z = _as_tensor(z0, problem.device)
     opt_state = Adam(icfg.learning_rate).init({"z": z})
 
@@ -277,12 +327,16 @@ def invert(problem: InversionProblem, icfg: InvertConfig, seed: int = 0,
         step += n
     if step in capture or capture:
         frames.append(_frames(problem, z))
+    if problem.group is not None:
+        z = problem.group.all_gather(z, 0)
     return z, np.concatenate(losses) if losses else np.zeros(0), frames
 
 
 def _frames(problem: InversionProblem, z: Tensor) -> np.ndarray:
-    with torch.no_grad():
+    with torch.no_grad(), _in_group(problem):
         _, imgs = problem.loss_fn(z)
+    if problem.group is not None:
+        imgs = problem.group.all_gather(imgs, 0)
     return imgs.float().cpu().numpy()
 
 
@@ -308,25 +362,27 @@ def _capture_steps(total: int, sections) -> set:
 
 def invert_images(params, state, targets, cfg: DCGANConfig,
                   icfg: InvertConfig, seed: int = 0, progress_sections=None,
-                  device=None, z0=None):
+                  device=None, z0=None, mesh=None):
     """z0: the starting latents (B, z_dim); None draws them from `seed`."""
     return invert(image_problem(params, state, targets, cfg, icfg, device),
-                  icfg, seed=seed, z0=z0, progress_sections=progress_sections)
+                  icfg, seed=seed, z0=z0, progress_sections=progress_sections,
+                  mesh=mesh)
 
 
 def invert_video_joint(params, state, video_frames, cfg: DCGANConfig,
-                       icfg: InvertConfig, seed: int = 0, device=None):
+                       icfg: InvertConfig, seed: int = 0, device=None,
+                       mesh=None):
     """One z per frame, jointly optimized: video_frames is time-folded
     (V*T, s, s, c) and inverted like a batch of images."""
     return invert(image_problem(params, state, video_frames, cfg, icfg,
-                                device), icfg, seed=seed)
+                                device), icfg, seed=seed, mesh=mesh)
 
 
 def invert_video_iterative(params, state, video_frames, cfg: DCGANConfig,
                            icfg: InvertConfig, num_initial_steps: int = 500,
                            num_steps_per_frame: int = 100, seed: int = 0,
-                           post_initial_lr_decay: float = 0.9, device=None
-                           ) -> np.ndarray:
+                           post_initial_lr_decay: float = 0.9, device=None,
+                           mesh=None) -> np.ndarray:
     """One z per VIDEO, frame by frame with warm starts:
     `num_initial_steps` on frame 0 at the full rate, then
     `num_steps_per_frame` on EVERY frame (frame 0 included) at lr *
@@ -342,7 +398,8 @@ def invert_video_iterative(params, state, video_frames, cfg: DCGANConfig,
     init_cfg = dataclasses.replace(icfg, steps=num_initial_steps,
                                    batch_size=v)
     z, _, _ = invert(image_problem(params, state, video_frames[:, 0], cfg,
-                                   init_cfg, device), init_cfg, seed=seed)
+                                   init_cfg, device), init_cfg, seed=seed,
+                     mesh=mesh)
 
     frame_cfg = dataclasses.replace(
         icfg, steps=num_steps_per_frame,
@@ -352,16 +409,17 @@ def invert_video_iterative(params, state, video_frames, cfg: DCGANConfig,
     for frame in range(t):
         problem = image_problem(params, state, video_frames[:, frame], cfg,
                                 frame_cfg, device)
-        z, _, _ = invert(problem, frame_cfg, z0=z)
+        z, _, _ = invert(problem, frame_cfg, z0=z, mesh=mesh)
         zs.append(z.cpu().numpy())
     return np.stack(zs)  # (T, V, z_dim)
 
 
 def invert_nested_first_frame(params, state, targets, cfg: VidGANConfig,
                               icfg: InvertConfig, seed: int = 0,
-                              device=None):
+                              device=None, mesh=None):
     return invert(nested_first_frame_problem(params, state, targets, cfg,
-                                             icfg, device), icfg, seed=seed)
+                                             icfg, device), icfg, seed=seed,
+                  mesh=mesh)
 
 
 def apply_latent_path(params, state, z, path, cfg: DCGANConfig,

@@ -13,6 +13,10 @@ inverter. Kept from the reference:
     (optimize.invert_video_iterative), all videos of the batch at once;
   - optional comparison renders (target | reconstruction), written as a
     GIF where the reference writes an mp4.
+
+With `mesh=` every rank runs the same walk and each batch's inversions run
+data-parallel over the mesh's data axis (optimize.py shard_problem); rank
+0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gifgan_tpu_torch import resolve_device
 from gifgan_tpu_torch.core.config import DCGANConfig, InvertConfig
@@ -42,11 +47,17 @@ def extract_z_trajectories(params, state, cfg: DCGANConfig,
                            post_initial_lr_decay: float = 0.9,
                            stop_after: Optional[int] = None,
                            write_comparisons: bool = False,
-                           seed: int = 0, device=None) -> List[str]:
+                           seed: int = 0, device=None,
+                           mesh=None) -> List[str]:
     """load_clip: path -> (T, s, s, c) float [-1, 1] frames, or None to
     skip. Writes `<output_dir>/<clip-stem>.npy` of shape (T, z_dim) and
-    returns the outputs written by this call."""
+    returns the outputs written by this call.
+
+    mesh: run each batch's per-frame optimizations data-parallel over the
+    mesh's data axis (the partial-batch padding keeps the batch at
+    batch_size: pick a multiple of the data axis); only rank 0 writes."""
     device = resolve_device(device)
+    primary = mesh is None or not dist.is_initialized() or dist.get_rank() == 0
     os.makedirs(output_dir, exist_ok=True)
     written: List[str] = []
     pending: List[tuple] = []
@@ -67,11 +78,13 @@ def extract_z_trajectories(params, state, cfg: DCGANConfig,
             num_initial_steps=num_initial_steps,
             num_steps_per_frame=num_steps_per_frame,
             post_initial_lr_decay=post_initial_lr_decay, seed=seed,
-            device=device)                                # (T, V, z_dim)
+            device=device, mesh=mesh)                     # (T, V, z_dim)
         for i, (path, clip) in enumerate(batch):
             traj = zs[:, i, :]
-            np.save(out_path(path), traj)
             written.append(out_path(path))
+            if not primary:
+                continue
+            np.save(out_path(path), traj)
             if write_comparisons:
                 _write_comparison(params, state, cfg, traj, clip,
                                   out_path(path)[:-4] + "_comparison.gif",

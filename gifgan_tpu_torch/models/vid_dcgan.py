@@ -25,6 +25,7 @@ from gifgan_tpu_torch import resolve_device
 from gifgan_tpu_torch.core.config import VidGANConfig
 from gifgan_tpu_torch.models import dcgan
 from gifgan_tpu_torch.ops import nn
+from gifgan_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
 
@@ -139,7 +140,8 @@ def generate_videos(params, state, z: Tensor, cfg: VidGANConfig, train: bool,
 
 def first_frame_loss(g_out: Tensor, z: Tensor, cfg: VidGANConfig) -> Tensor:
     """MSE between the generated frame-0 latents (every T-th row of the
-    time-folded g_out) and z[:, :z_out]."""
+    time-folded g_out) and z[:, :z_out]; over the logical batch in a mesh
+    step (parallel/collectives.py)."""
     first = g_out[::cfg.vid_length]
     target = z[:, :cfg.z_output_size]
-    return torch.mean(torch.square(first - target))
+    return collectives.mean(torch.square(first - target))

@@ -10,6 +10,12 @@ the reference; BatchNorm math runs in float32 and is cast back.
 
 The convolutions themselves are PyTorch's (cuDNN on the card): the JAX
 package leaves them to XLA, not to a Pallas kernel.
+
+In a mesh step (parallel/dp.py) each rank holds its rows of the batch, and
+the reductions over the batch axis (batch_norm's moments, get_std,
+sigmoid_ce's mean) and add_noise's draw go through
+parallel/collectives.py, which the step's context points at its data
+group; outside a mesh step they are the one-process arithmetic.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from gifgan_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
 
@@ -238,7 +246,7 @@ def batch_norm(params, state, x: Tensor, train: bool,
     axes = tuple(range(x.ndim - 1))
     xf = x.float()
     if train:
-        var, mean = torch.var_mean(xf, dim=axes, correction=0)
+        mean, var = collectives.moments(xf, axes)
         new_state = {
             "mean": momentum * state["mean"] + (1.0 - momentum) * mean.detach(),
             "var": momentum * state["var"] + (1.0 - momentum) * var.detach(),
@@ -268,15 +276,16 @@ def add_noise(gen: Optional[torch.Generator], x: Tensor, stddev) -> Tensor:
     if isinstance(stddev, (float, int)):
         if stddev == 0.0:
             return x
-        return x + stddev * torch.randn(x.shape, generator=gen,
-                                        dtype=x.dtype, device=x.device)
-    return x + stddev.to(x.dtype) * torch.randn(
-        x.shape, generator=gen, dtype=x.dtype, device=x.device)
+        return x + stddev * collectives.randn_like_rows(gen, x)
+    return x + stddev.to(x.dtype) * collectives.randn_like_rows(gen, x)
 
 
 def get_std(x: Tensor) -> Tensor:
     """Mean per-feature std over the batch axis — the collapse diagnostic."""
-    return torch.sqrt(torch.mean(torch.var(x.float(), dim=0, correction=0)))
+    xf = x.float()
+    var = (torch.var(xf, dim=0, correction=0) if collectives.active() is None
+           else collectives.moments(xf, (0,))[1])
+    return torch.sqrt(torch.mean(var))
 
 
 def sigmoid_ce(logits: Tensor, labels: Tensor) -> Tensor:
@@ -286,6 +295,6 @@ def sigmoid_ce(logits: Tensor, labels: Tensor) -> Tensor:
     cond = logits >= zeros
     relu_logits = torch.where(cond, logits, zeros)
     neg_abs = torch.where(cond, -logits, logits)
-    return torch.mean(relu_logits - logits * labels
-                      + torch.log1p(torch.exp(neg_abs)))
+    return collectives.mean(relu_logits - logits * labels
+                            + torch.log1p(torch.exp(neg_abs)))
 

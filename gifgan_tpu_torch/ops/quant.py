@@ -54,6 +54,7 @@ from gifgan_tpu_torch.core.rng import PRNGSequence, uniform_z
 from gifgan_tpu_torch.core.tree import flatten, unflatten
 from gifgan_tpu_torch.models.vid_dcgan import frame_inputs
 from gifgan_tpu_torch.ops import nn
+from gifgan_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
 
@@ -110,9 +111,12 @@ def quantize_weight(layer: Dict, out_axis: int) -> Dict:
 
 def quantize_act(x: Tensor) -> Tuple[Tensor, Tensor]:
     """Dynamic per-tensor symmetric quantization: (x_q int8, scale f32[]).
-    The scale is a 0-d tensor on x's device: no host sync."""
+    The scale is a 0-d tensor on x's device: no host sync. In a mesh
+    step its max covers the whole logical batch
+    (parallel/collectives.py)."""
     x32 = x.float()
-    scale = torch.clamp_min(torch.amax(torch.abs(x32)) / QMAX, 1e-12)
+    scale = torch.clamp_min(
+        collectives.batch_max(torch.amax(torch.abs(x32))) / QMAX, 1e-12)
     return _quantize(x32, scale), scale
 
 

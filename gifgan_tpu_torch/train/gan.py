@@ -10,7 +10,10 @@ returns a new state; the one it was given is not modified. `lax.scan`
 becomes a Python loop (train_chunk, train_chunk_ids), autograd replaces
 jax.value_and_grad, and noise draws come from an explicit torch.Generator
 (None draws none): torch cannot reproduce threefry, so parity with the JAX
-package holds step by step with z passed in and noise 0.
+package holds step by step with z passed in and noise 0. On a mesh the
+gradients are reduced over the ranks between each `_x_grads` and its
+optimizer update (parallel/collectives.py reduce_gradients, the seam
+train/vid.py shares), and FSDP-sharded state is gathered where it is read.
 
 A functional Adam with optax's arithmetic and state, so a JAX train state's
 slots resume here (core/interop.py):
@@ -35,6 +38,7 @@ from gifgan_tpu_torch.core.config import DCGANConfig, TrainConfig
 from gifgan_tpu_torch.core.tree import flatten, unflatten
 from gifgan_tpu_torch.models import dcgan
 from gifgan_tpu_torch.ops import nn
+from gifgan_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
 
@@ -170,16 +174,18 @@ def _d_grads(ts: TrainState, images: Tensor, z: Tensor, gen,
              cfg: DCGANConfig) -> Tuple[Dict, Dict, Dict]:
     """(D-loss gradients over the D params, metrics, new BN state: G's from
     its train-mode forward, D's chained real -> fake)."""
+    params = collectives.gather(ts.params, "params")
+    state = collectives.gather(ts.state, "state")
     noisy_images = nn.add_noise(gen, images, cfg.noise_std)
     with torch.no_grad():            # D never needs gradients through G
-        fake, gen_bn = dcgan.generator(ts.params["generator"],
-                                       ts.state["generator"], z, cfg,
+        fake, gen_bn = dcgan.generator(params["generator"],
+                                       state["generator"], z, cfg,
                                        train=True)
     noisy_fake = nn.add_noise(gen, fake, cfg.noise_std)
-    keys, leaves, d_params = _differentiable(ts.params["discriminator"])
+    keys, leaves, d_params = _differentiable(params["discriminator"])
     with torch.enable_grad():
         logits_real, _, ds1 = dcgan.discriminator(
-            d_params, ts.state["discriminator"], noisy_images, cfg,
+            d_params, state["discriminator"], noisy_images, cfg,
             train=True)
         logits_fake, _, ds2 = dcgan.discriminator(d_params, ds1, noisy_fake,
                                                   cfg, train=True)
@@ -198,11 +204,12 @@ def _d_grads(ts: TrainState, images: Tensor, z: Tensor, gen,
 def _d_step(ts: TrainState, images: Tensor, z: Tensor, gen,
             cfg: DCGANConfig, opt: Adam) -> Tuple[TrainState, Dict]:
     grads, metrics, bn = _d_grads(ts, images, z, gen, cfg)
+    grads = collectives.reduce_gradients(grads, "opt_d")
     updates, opt_d = opt.update(grads, ts.opt_d)
     ts = ts._replace(
         params=dict(ts.params, discriminator=apply_updates(
             ts.params["discriminator"], updates)),
-        state=bn, opt_d=opt_d)
+        state=collectives.shard(bn, "state"), opt_d=opt_d)
     return ts, metrics
 
 
@@ -210,13 +217,15 @@ def _g_grads(ts: TrainState, z: Tensor, gen,
              cfg: DCGANConfig) -> Tuple[Dict, Dict, Dict]:
     """(G-loss gradients over the G params, metrics, new BN state of both
     nets from the G loss's forward)."""
-    keys, leaves, g_params = _differentiable(ts.params["generator"])
+    params = collectives.gather(ts.params, "params")
+    state = collectives.gather(ts.state, "state")
+    keys, leaves, g_params = _differentiable(params["generator"])
     with torch.enable_grad():
-        fake, gen_bn = dcgan.generator(g_params, ts.state["generator"], z,
+        fake, gen_bn = dcgan.generator(g_params, state["generator"], z,
                                        cfg, train=True)
         noisy_fake = nn.add_noise(gen, fake, cfg.noise_std)
         logits_fake, _, disc_bn = dcgan.discriminator(
-            ts.params["discriminator"], ts.state["discriminator"],
+            params["discriminator"], state["discriminator"],
             noisy_fake, cfg, train=True)
         g_loss = nn.sigmoid_ce(logits_fake, torch.ones_like(logits_fake))
         grads = _grads(g_loss, keys, leaves)
@@ -227,11 +236,12 @@ def _g_grads(ts: TrainState, z: Tensor, gen,
 def _g_step(ts: TrainState, z: Tensor, gen, cfg: DCGANConfig,
             opt: Adam) -> Tuple[TrainState, Dict]:
     grads, metrics, bn = _g_grads(ts, z, gen, cfg)
+    grads = collectives.reduce_gradients(grads, "opt_g")
     updates, opt_g = opt.update(grads, ts.opt_g)
     ts = ts._replace(
         params=dict(ts.params, generator=apply_updates(
             ts.params["generator"], updates)),
-        state=bn, opt_g=opt_g)
+        state=collectives.shard(bn, "state"), opt_g=opt_g)
     return ts, metrics
 
 

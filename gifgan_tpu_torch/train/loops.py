@@ -1,5 +1,5 @@
-"""Training loops (gifgan_tpu/train/loops.py), on one device: epochs, sample
-grids, checkpoints, metrics, resume.
+"""Training loops (gifgan_tpu/train/loops.py): epochs, sample grids,
+checkpoints, metrics, resume, on one device or on a mesh's data axis.
 
 The reference's behaviours are kept: per-epoch data seeds (seed + start
 step + epoch), the device-corpus id order (a numpy permutation per epoch,
@@ -14,7 +14,18 @@ Differences, each by design: the random streams are torch's
 (core/rng.py), the image grid is a PNG written by ops/image.py write_png
 and the video grids are GIFs (data/native_gif.py), not mp4, since the
 card's machine has no imaging library; the cadence is checked after every
-chunk, the epoch-tail one too; there is no mesh yet.
+chunk, the epoch-tail one too.
+
+On a mesh (`mesh=`, core/mesh.py; the JAX branches of loops.py:160-178 and
+:351-411, data axis only) every rank runs the loop: it visits the same id
+permutation, draws the same global z and noise, resumes from the same
+checkpoint, and trains its rows of each batch through
+parallel/dp.py make_sharded_step, K1 gathering its own ids on a device
+corpus. `fsdp=True` shards the state (parallel/fsdp.py), gathered whole
+for checkpoints and grids. Only rank 0 writes params.json, the metrics log,
+the grids and the checkpoints (core/checkpoint.py save_multihost). A mesh
+with a seq or model axis above 1 is refused: tensor and sequence
+parallelism are not ported.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from gifgan_tpu_torch.core import checkpoint as ckpt
 from gifgan_tpu_torch.core.config import (DCGANConfig, RecurrentImageConfig,
                                           TrainConfig, VidGANConfig,
                                           save_config)
+from gifgan_tpu_torch.core.mesh import MODEL_AXIS, SEQ_AXIS
 from gifgan_tpu_torch.core.metrics import MetricsLogger
 from gifgan_tpu_torch.core.rng import PRNGSequence, uniform_z
 from gifgan_tpu_torch.data.device import DeviceCorpus
@@ -39,6 +51,8 @@ from gifgan_tpu_torch.data.loader import PrefetchLoader
 from gifgan_tpu_torch.data.video import write_gif
 from gifgan_tpu_torch.ops.image import (denorm_u8, inverse_transform,
                                         merge_grid, to_uint8, write_png)
+from gifgan_tpu_torch.parallel import fsdp as fsdp_lib
+from gifgan_tpu_torch.parallel.dp import make_sharded_step, shard_train_state
 from gifgan_tpu_torch.train import gan
 from gifgan_tpu_torch.train import recurrent as rtrain
 from gifgan_tpu_torch.train import vid as vid_train
@@ -164,19 +178,34 @@ def _corpus(u8: np.ndarray, item_shape: tuple, what: str, batch_size: int,
 
 
 class _Loop:
-    """What the loops share: run dir, stream, state restore, the pending
-    chunk, the epoch walk, cadence and the final checkpoint. `step_chunk`
-    trains the pending chunk; `on_chunk` logs it and writes samples. A
-    z_dim of None draws no z (the recurrent GAN has no latent)."""
+    """What the loops share: run dir, stream, state restore and placement
+    on the mesh, the pending chunk, the epoch walk, cadence and the final
+    checkpoint. `step_chunk` trains the pending chunk; `on_chunk` logs it
+    and writes samples. A z_dim of None draws no z (the recurrent GAN has
+    no latent)."""
 
     def __init__(self, cfg, tcfg: TrainConfig, init_fn: Callable,
-                 resume: bool, device):
-        self.cfg, self.tcfg = cfg, tcfg
+                 resume: bool, device, mesh=None, fsdp: bool = False,
+                 fsdp_min_size: int = 2048):
+        if fsdp and mesh is None:
+            raise ValueError("fsdp=True requires a device mesh "
+                             "(--data-parallel 0 or N, not 1)")
+        if mesh is not None and (mesh.shape[SEQ_AXIS] > 1
+                                 or mesh.shape[MODEL_AXIS] > 1):
+            raise ValueError(
+                f"the port trains on a mesh's data axis only, got {mesh}: "
+                "tensor and sequence parallelism (--tensor-parallel, "
+                "--seq-parallel) are ROADMAP item 6b")
+        self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
+        self.primary = (mesh is None
+                        or not torch.distributed.is_initialized()
+                        or torch.distributed.get_rank() == 0)
         self.device = resolve_device(device)
         self.run_dir = tcfg.run_dir
         os.makedirs(self.run_dir, exist_ok=True)
-        save_config({"model": cfg, "train": tcfg},
-                    os.path.join(self.run_dir, "params.json"))
+        if self.primary:
+            save_config({"model": cfg, "train": tcfg},
+                        os.path.join(self.run_dir, "params.json"))
         self.rngs = PRNGSequence(tcfg.seed, self.device)
         self.ts = init_fn(torch.Generator().manual_seed(
             self.rngs.next_seed()), cfg, tcfg, device=self.device)
@@ -188,13 +217,44 @@ class _Loop:
             self.rngs = _resume_rngs(tcfg.seed, int(self.ts.step),
                                      self.device)
         self.step = int(self.ts.step)
+        self.fsdp, self.fsdp_min_size = fsdp, fsdp_min_size
+        self.shardings = None
+
+    def place(self) -> None:
+        """Lay the (restored or grafted) state out on the mesh: replicated,
+        or FSDP's blocks."""
+        if self.mesh is not None and self.fsdp:
+            self.ts, self.shardings = fsdp_lib.place_and_shardings(
+                self.mesh, self.ts, min_size=self.fsdp_min_size)
+        elif self.mesh is not None:
+            self.ts = shard_train_state(self.mesh, self.ts)
+
+    def stepper(self, fn: Callable, batch_axis: int,
+                pass_knobs: bool = False, **static) -> Callable:
+        """fn(ts, *arrays, gen, [knobs=], **static) as call(ts, *arrays,
+        gen[, knobs]) on the global arrays: sharded over the mesh when
+        there is one (batch_axis: the arrays' batch axis)."""
+        if self.mesh is not None:
+            return make_sharded_step(fn, self.mesh, static_args=static,
+                                     batch_axis=batch_axis,
+                                     state_shardings=self.shardings,
+                                     pass_knobs=pass_knobs)
+        if pass_knobs:
+            return lambda ts, *a: fn(ts, *a[:-1], knobs=a[-1], **static)
+        return lambda ts, *a: fn(ts, *a, **static)
+
+    def full_state(self):
+        """The whole train state (FSDP's blocks gathered: every rank calls
+        this together)."""
+        return fsdp_lib.gather_state(self.ts, self.shardings)
 
     def run(self, batches_of_epoch: Callable[[int], Iterator], z_dim: int,
             batch_len: Callable, step_chunk: Callable, on_chunk: Callable,
             chunk: int, steps_limit: Optional[int]):
         tcfg = self.tcfg
-        self.log = MetricsLogger(self.run_dir)
-        saver = ckpt.AsyncCheckpointer()
+        self.log = MetricsLogger(self.run_dir if self.primary else None,
+                                 print_every=1 if self.primary else 0)
+        saver = ckpt.AsyncCheckpointer(multihost=self.mesh is not None)
         start_step, pending, pending_z = self.step, [], []
         epoch = 0
 
@@ -210,7 +270,7 @@ class _Loop:
             self.step += k
             on_chunk(metrics, prev, epoch)
             if _crossed(prev, self.step, tcfg.checkpoint_every):
-                saver.save(self.ckpt_dir, self.step, self.ts,
+                saver.save(self.ckpt_dir, self.step, self.full_state(),
                            max_to_keep=tcfg.max_checkpoints_to_keep)
 
         done = lambda: bool(steps_limit) and self.step >= steps_limit
@@ -233,12 +293,13 @@ class _Loop:
                 flush()                       # the epoch-tail partial chunk
                 if done():
                     break
-            saver.save(self.ckpt_dir, self.step, self.ts,
+            final = self.full_state()
+            saver.save(self.ckpt_dir, self.step, final,
                        max_to_keep=tcfg.max_checkpoints_to_keep)
         finally:
             saver.close()
             self.log.close()
-        return self.ts
+        return final
 
     def host_batches(self, factory: Callable) -> Callable[[int], Iterator]:
         """Epoch batches from a host iterator factory, uploaded to the
@@ -252,35 +313,46 @@ def train_dcgan(images_iter: Optional[Callable[[], Iterator]],
                 cfg: DCGANConfig, tcfg: TrainConfig, resume: bool = True,
                 steps_limit: Optional[int] = None, chunk: int = 1,
                 stills_u8: Optional[np.ndarray] = None,
-                device=None) -> gan.TrainState:
+                device=None, mesh=None, fsdp: bool = False,
+                fsdp_min_size: int = 2048) -> gan.TrainState:
     """Train the image DCGAN; returns the final TrainState.
 
     images_iter: () or (epoch_seed) -> iterator of (B, s, s, c) float
     [-1, 1] batches (numpy or tensors), one pass an epoch.
     stills_u8: instead, an (N, s, s, c) uint8 corpus uploaded once; each
     step's batch is gathered on the device (K1 on the card) and the host
-    ships ids only. chunk: batches per `train_chunk` call."""
-    loop = _Loop(cfg, tcfg, gan.init_train_state, resume, device)
+    ships ids only. chunk: batches per `train_chunk` call. mesh: train
+    data-parallel on its data axis; fsdp: shard the state over it (leaves
+    of at least fsdp_min_size elements)."""
+    loop = _Loop(cfg, tcfg, gan.init_train_state, resume, device, mesh,
+                 fsdp, fsdp_min_size)
+    loop.place()
     s, c = cfg.output_size, cfg.c_dim
     corpus = None
     if stills_u8 is not None:
         corpus = _corpus(stills_u8, (s, s, c), "stills_u8 (N, s, s, c)",
-                         tcfg.batch_size, loop.device)
+                         tcfg.batch_size, loop.device, mesh=mesh)
+        chunk_fn = loop.stepper(gan.train_chunk_ids, 1,
+                                corpus_data=corpus.data, cfg=cfg, tcfg=tcfg,
+                                sample_fn=corpus.sample_fn)
+    else:
+        chunk_fn = loop.stepper(gan.train_chunk, 1, cfg=cfg, tcfg=tcfg)
     sample_z = uniform_z(loop.rngs.next(), (64, cfg.z_dim))
 
     def step_chunk(ts, pending, z, gen):
         if corpus is not None:
             ids = torch.as_tensor(np.stack(pending), device=loop.device)
-            return gan.train_chunk_ids(ts, ids, z, gen, corpus.data, cfg,
-                                       tcfg, sample_fn=corpus.sample_fn)
-        return gan.train_chunk(ts, torch.stack(pending), z, gen, cfg, tcfg)
+            return chunk_fn(ts, ids, z, gen)
+        return chunk_fn(ts, torch.stack(pending), z, gen)
 
     def on_chunk(metrics, prev, epoch):
         loop.log.log(loop.step, {k: v[-1] for k, v in metrics.items()})
         if _crossed(prev, loop.step, tcfg.sample_every):
-            _save_grid(gan.sample_step(loop.ts, sample_z, cfg), 8, 8,
-                       os.path.join(loop.run_dir,
-                                    f"train_{epoch:02d}_{loop.step:06d}.png"))
+            full = loop.full_state()
+            if loop.primary:
+                _save_grid(gan.sample_step(full, sample_z, cfg), 8, 8,
+                           os.path.join(loop.run_dir, f"train_{epoch:02d}_"
+                                                      f"{loop.step:06d}.png"))
 
     batches = (
         (lambda seed: _id_batches(corpus.n, tcfg.batch_size, seed))
@@ -294,8 +366,9 @@ def train_vid_dcgan(clips_iter: Optional[Callable[[], Iterator]],
                     image_gan_ckpt: Optional[str] = None,
                     resume: bool = True, steps_limit: Optional[int] = None,
                     chunk: int = 1, clips_u8: Optional[np.ndarray] = None,
-                    auto_intervene: bool = False,
-                    device=None) -> vid_train.VidTrainState:
+                    auto_intervene: bool = False, device=None,
+                    mesh=None, fsdp: bool = False,
+                    fsdp_min_size: int = 2048) -> vid_train.VidTrainState:
     """Train the video GAN; returns the final VidTrainState.
 
     clips_iter: () or (epoch_seed) -> iterator of time-folded
@@ -306,18 +379,31 @@ def train_vid_dcgan(clips_iter: Optional[Callable[[], Iterator]],
     step's clips gathered on the device (K1 on the card). auto_intervene:
     the collapse controller (train/controller.py) drives the noise and
     D-lr knobs from each chunk's d_loss; its events go to the metrics log,
-    from which a resumed run restores the knob levels."""
-    loop = _Loop(cfg, tcfg, vid_train.init_train_state, resume, device)
+    from which a resumed run restores the knob levels. mesh: train
+    data-parallel on its data axis, each rank's clips gathered by K1 from
+    its own ids; fsdp: shard the state over it (leaves of at least
+    fsdp_min_size elements)."""
+    loop = _Loop(cfg, tcfg, vid_train.init_train_state, resume, device,
+                 mesh, fsdp, fsdp_min_size)
     if not loop.resumed and image_gan_ckpt:
         loop.ts = vid_train.load_image_gan(loop.ts, image_gan_ckpt)
-        print(f"loaded frozen image GAN from {image_gan_ckpt}")
+        if loop.primary:
+            print(f"loaded frozen image GAN from {image_gan_ckpt}")
+    loop.place()
     img = cfg.image_gan
     corpus = None
     if clips_u8 is not None:
         s = img.output_size
         corpus = _corpus(clips_u8, (cfg.vid_length, s, s, img.c_dim),
                          "clips_u8 (N, vid_length, s, s, c)",
-                         tcfg.batch_size, loop.device)
+                         tcfg.batch_size, loop.device, mesh=mesh)
+        chunk_fn = loop.stepper(vid_train.train_chunk_ids, 1,
+                                pass_knobs=auto_intervene,
+                                corpus_data=corpus.data, cfg=cfg, tcfg=tcfg,
+                                sample_fn=corpus.sample_fn)
+    else:
+        chunk_fn = loop.stepper(vid_train.train_chunk, 1,
+                                pass_knobs=auto_intervene, cfg=cfg, tcfg=tcfg)
 
     controller, knobs = None, None
     if auto_intervene:
@@ -344,13 +430,10 @@ def train_vid_dcgan(clips_iter: Optional[Callable[[], Iterator]],
              for name, z in grids]
 
     def step_chunk(ts, pending, z, gen):
-        if corpus is not None:
-            ids = torch.as_tensor(np.stack(pending), device=loop.device)
-            return vid_train.train_chunk_ids(
-                ts, ids, z, gen, corpus.data, cfg, tcfg,
-                sample_fn=corpus.sample_fn, knobs=knobs)
-        return vid_train.train_chunk(ts, torch.stack(pending), z, gen, cfg,
-                                     tcfg, knobs=knobs)
+        data = (torch.as_tensor(np.stack(pending), device=loop.device)
+                if corpus is not None else torch.stack(pending))
+        return chunk_fn(ts, data, z, gen, *([knobs] if auto_intervene
+                                            else []))
 
     def on_chunk(metrics, prev, epoch):
         nonlocal knobs
@@ -364,13 +447,16 @@ def train_vid_dcgan(clips_iter: Optional[Callable[[], Iterator]],
                 knobs = vid_train.make_knobs(cfg, **controller.knob_values(),
                                              device=loop.device)
                 loop.log.log(loop.step, event)
-                print(f"[train-vid] auto-intervention @step {loop.step}: "
-                      f"{event['action']} -> noise={controller.image_noise} "
-                      f"d_lr_scale={controller.d_lr_scale}", flush=True)
+                if loop.primary:
+                    print(f"[train-vid] auto-intervention @step {loop.step}: "
+                          f"{event['action']} -> "
+                          f"noise={controller.image_noise} "
+                          f"d_lr_scale={controller.d_lr_scale}", flush=True)
         if _crossed(prev, loop.step, tcfg.sample_every):
-            for name, z in grids:
+            full = loop.full_state()
+            for name, z in grids if loop.primary else ():
                 _write_video_grid(
-                    vid_train.sample_videos(loop.ts, z, cfg), 8,
+                    vid_train.sample_videos(full, z, cfg), 8,
                     os.path.join(loop.run_dir,
                                  f"{name}_{epoch:02d}_{loop.step:06d}.gif"))
 

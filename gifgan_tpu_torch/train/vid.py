@@ -14,7 +14,11 @@ Semantics, as in the JAX package:
 - Loss: sigmoid CE, plus first_frame_loss_scalar * first-frame MSE for G.
 
 `lax.scan` becomes a Python loop (train_chunk, train_chunk_ids); autograd
-replaces jax.value_and_grad. Noise draws come from an explicit
+replaces jax.value_and_grad. On a mesh (parallel/dp.py make_sharded_step)
+the steps run on this rank's rows: the gradients are reduced over the
+ranks between each `_x_grads` and its optimizer update
+(parallel/collectives.py reduce_gradients), and under FSDP the state
+holds this rank's blocks, gathered where a pass reads them. Noise draws come from an explicit
 torch.Generator on the tensors' device; torch's generator cannot match
 threefry, so the parity tests against the JAX package run at noise 0.
 """
@@ -34,6 +38,7 @@ from gifgan_tpu_torch.core.config import TrainConfig, VidGANConfig, load_config
 from gifgan_tpu_torch.core.rng import PRNGSequence, uniform_z
 from gifgan_tpu_torch.models import dcgan, vid_dcgan
 from gifgan_tpu_torch.ops import nn, quant
+from gifgan_tpu_torch.parallel import collectives
 from gifgan_tpu_torch.train.gan import (Adam, AdamState, _differentiable,
                                         _grads, _stack, apply_updates,
                                         make_optimizer, scale_updates)
@@ -142,18 +147,21 @@ def _d_grads(ts: VidTrainState, frames: Tensor, z: Tensor, gen,
              cfg: VidGANConfig, tcfg: TrainConfig,
              knobs: Optional[Knobs] = None) -> Tuple[Dict, Dict, Dict]:
     """(grads of the D loss over the D-trainable tree, metrics, new vid-D
-    BN state — chained real -> fake)."""
-    keys, leaves, tr = _differentiable(_d_trainable(ts.params, tcfg))
-    params = dict(ts.params, vid_discriminator=tr["vid"])
+    BN state — chained real -> fake). Under FSDP the params and state are
+    all-gathered first (parallel/collectives.py gather)."""
+    full = collectives.gather(ts.params, "params")
+    state = collectives.gather(ts.state, "state")
+    keys, leaves, tr = _differentiable(_d_trainable(full, tcfg))
+    params = dict(full, vid_discriminator=tr["vid"])
     if "img" in tr:
         params["img_discriminator"] = tr["img"]
     with torch.enable_grad():
-        real_acts, real_std = _real_activations(params, ts.state, frames,
+        real_acts, real_std = _real_activations(params, state, frames,
                                                 cfg, gen, knobs)
-        fake_acts, _, _, fake_std = _fake_activations(params, ts.state, z,
+        fake_acts, _, _, fake_std = _fake_activations(params, state, z,
                                                       cfg, gen, knobs)
         logits_real, ds1 = vid_dcgan.vid_discriminator(
-            params["vid_discriminator"], ts.state["vid_discriminator"],
+            params["vid_discriminator"], state["vid_discriminator"],
             real_acts, cfg, train=True)
         logits_fake, ds2 = vid_dcgan.vid_discriminator(
             params["vid_discriminator"], ds1, fake_acts, cfg, train=True)
@@ -171,6 +179,7 @@ def _d_step(ts: VidTrainState, frames: Tensor, z: Tensor, gen,
             cfg: VidGANConfig, tcfg: TrainConfig, opt: Adam,
             knobs: Optional[Knobs] = None) -> Tuple[VidTrainState, Dict]:
     grads, metrics, vid_ds = _d_grads(ts, frames, z, gen, cfg, tcfg, knobs)
+    grads = collectives.reduce_gradients(grads, "opt_d")
     updates, opt_d = opt.update(grads, ts.opt_d)
     if knobs is not None:
         updates = scale_updates(updates, knobs.d_lr_scale)
@@ -178,6 +187,7 @@ def _d_step(ts: VidTrainState, frames: Tensor, z: Tensor, gen,
     params = dict(ts.params, vid_discriminator=new["vid"])
     if "img" in new:
         params["img_discriminator"] = new["img"]
+    vid_ds = collectives.shard(vid_ds, "state/vid_discriminator")
     ts = ts._replace(params=params,
                      state=dict(ts.state, vid_discriminator=vid_ds),
                      opt_d=opt_d)
@@ -188,16 +198,19 @@ def _g_grads(ts: VidTrainState, z: Tensor, gen, cfg: VidGANConfig,
              tcfg: TrainConfig, knobs: Optional[Knobs] = None,
              ) -> Tuple[Dict, Dict, Dict]:
     """(grads of the G loss over the G-trainable tree, metrics, new vid-G
-    BN state). The vid-D BN state of this pass is discarded."""
-    keys, leaves, tr = _differentiable(_g_trainable(ts.params, tcfg))
-    params = dict(ts.params, vid_generator=tr["vid"])
+    BN state). The vid-D BN state of this pass is discarded. Under FSDP
+    the params and state are all-gathered first."""
+    full = collectives.gather(ts.params, "params")
+    state = collectives.gather(ts.state, "state")
+    keys, leaves, tr = _differentiable(_g_trainable(full, tcfg))
+    params = dict(full, vid_generator=tr["vid"])
     if "img" in tr:
         params["img_generator"] = tr["img"]
     with torch.enable_grad():
-        fake_acts, g_out, vid_gs, _ = _fake_activations(params, ts.state, z,
+        fake_acts, g_out, vid_gs, _ = _fake_activations(params, state, z,
                                                         cfg, gen, knobs)
         logits_fake, _ = vid_dcgan.vid_discriminator(
-            params["vid_discriminator"], ts.state["vid_discriminator"],
+            params["vid_discriminator"], state["vid_discriminator"],
             fake_acts, cfg, train=True)
         realism = nn.sigmoid_ce(logits_fake, torch.ones_like(logits_fake))
         ff = (cfg.first_frame_loss_scalar
@@ -213,11 +226,13 @@ def _g_step(ts: VidTrainState, z: Tensor, gen, cfg: VidGANConfig,
             tcfg: TrainConfig, opt: Adam,
             knobs: Optional[Knobs] = None) -> Tuple[VidTrainState, Dict]:
     grads, metrics, vid_gs = _g_grads(ts, z, gen, cfg, tcfg, knobs)
+    grads = collectives.reduce_gradients(grads, "opt_g")
     updates, opt_g = opt.update(grads, ts.opt_g)
     new = apply_updates(_g_trainable(ts.params, tcfg), updates)
     params = dict(ts.params, vid_generator=new["vid"])
     if "img" in new:
         params["img_generator"] = new["img"]
+    vid_gs = collectives.shard(vid_gs, "state/vid_generator")
     ts = ts._replace(params=params,
                      state=dict(ts.state, vid_generator=vid_gs), opt_g=opt_g)
     return ts, metrics

@@ -797,6 +797,29 @@ def test_serve_and_ckpt_parsers_equal_the_jax_cli(command, monkeypatch):
     assert got == want
 
 
+# the JAX train-vid's tensor- and sequence-parallel flags: not ported
+NOT_PORTED_FLAGS = {"tensor_parallel", "seq_parallel"}
+
+
+@pytest.mark.parametrize("command", ["train-dcgan", "train-vid",
+                                     "train-recurrent", "sample-wall"])
+def test_train_and_sample_wall_parsers_equal_the_jax_cli(command,
+                                                         monkeypatch):
+    """The training commands and sample-wall take the JAX command's flags,
+    the mesh flags (--data-parallel, --fsdp, --fsdp-min-size) with their
+    defaults included, plus --device; all but train-vid's
+    --tensor-parallel and --seq-parallel."""
+    want = _flags(_jax_subparsers(monkeypatch)[command])
+    got = _flags(_choices(cli.build_parser())[command])
+    assert got.pop("device") == (("--device",), "_StoreAction", None,
+                                 None, None, False, None, None)
+    assert set(want) - set(got) == (NOT_PORTED_FLAGS if command == "train-vid"
+                                    else set())
+    for dest in NOT_PORTED_FLAGS:
+        want.pop(dest, None)
+    assert got == want
+
+
 def test_the_port_has_26_of_the_27_commands(monkeypatch):
     """Named when `bench` was the one missing; the port now has all 27."""
     want = set(_jax_subparsers(monkeypatch))
