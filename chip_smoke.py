@@ -200,16 +200,34 @@ Phases, one report line each, any failed check raising:
             MESH_CLI_TOL (the later steps printed), one metrics record a
             step (rank 0 alone writes), the walls' frames equal, K1 once a
             step on each rank; each rank's seconds, peak bytes and
-            collective bytes. Both float32 parts run with TF32 off and the
-            deterministic kernels (exact_f32).
+            collective bytes by axis. Both float32 parts run with TF32 off
+            and the deterministic kernels (exact_f32).
+19. mesh_tp_sp the seq and model axes (parallel/tp.py, sp.py): four gloo
+            ranks share the card, started by torch.distributed.run
+            (mesh_rank), and run train-vid --device-corpus --chunk 1
+            (TP_SP_BATCH clips, TP_SP_STEPS steps, flagship widths,
+            float32, exact_f32) through the CLI on each mesh of
+            TP_SP_MESHES, each against the same command on one rank in
+            this process: the first step's D losses within MESH_CLI_TOL
+            (the G losses, after an Adam update from fresh slots, and the
+            later steps printed), one metrics record a step, K1 once a
+            step on each rank, no weight-shaped all-gather over `model` but
+            the final checkpoint's, that checkpoint restored in this
+            process and trained a step; then one D and one G pass's
+            gradients of the seeded state on each mesh (tp_sp_grads)
+            against one rank's, within TP_SP_GRAD_TOL of each net's
+            largest gradient or TP_SP_FLOOR_X times one rank's own gap
+            with the clips reversed; each rank's bytes a step by axis
+            beside the count from the shapes (tp_sp_bytes), seconds and
+            peak bytes, and each mesh's ms/step.
 
 The launch counts are zeroed just before each of serve, the three
 workflow commands, serve_int8, invert and recurrent (no kernel of the four
 is on their paths, and they report their counts), train, profile, prep,
 track and feed and read just after (bench runs in its own process and
 launches none of the four), and so around each step of dataprep, eval and
-serve_web that touches the card and each run of mesh (the kernels line
-gives them per step). Then a
+serve_web that touches the card and each run of mesh and mesh_tp_sp
+(the kernels line gives them per step). Then a
 `kernels` JSON line, the nvidia-smi line, and as the last line {"ok":
 true, "device": {...}}. Without CUDA it
 exits 2 and prints no result. --profile adds a core/profile.py table of
@@ -295,9 +313,12 @@ from gifgan_tpu_torch.track.haar_device import (DeviceHaarDetector,
 from gifgan_tpu_torch.track.pipeline import process_video
 from gifgan_tpu_torch.track.stats import TrackStats
 from gifgan_tpu_torch.train import early_stop, gan, loops, vid
-from gifgan_tpu_torch.core.mesh import make_mesh
+from gifgan_tpu_torch.core.mesh import MODEL_AXIS, make_mesh
 from gifgan_tpu_torch.core.tree import flatten
 from gifgan_tpu_torch.parallel import fsdp as tfsdp
+from gifgan_tpu_torch.parallel import collectives
+from gifgan_tpu_torch.parallel import sp as tsp
+from gifgan_tpu_torch.parallel import tp as ttp
 from gifgan_tpu_torch.parallel.distributed import initialize
 from gifgan_tpu_torch.parallel.dp import make_sharded_step, shard_train_state
 from gifgan_tpu_torch.train import recurrent as rtrain
@@ -393,6 +414,23 @@ PROFILE_CLIPS, PROFILE_LAUNCHES = 512, "[profile] launches_json="
 # the first step's losses against one rank's
 MESH_STEPS, MESH_TIMED_CHUNKS, MESH_CLI_STEPS, MESH_CLIPS = 4, 3, 8, 128
 MESH_PARITY_TOL, MESH_CLI_TOL, MESH_TIMEOUT_S = 1e-5, 1e-4, 600
+# mesh_tp_sp: four gloo ranks sharing the card run train-vid through the
+# CLI on each of three meshes of the seq and model axes, at the flagship
+# widths in float32, cut in depth only: a batch of 8 clips (128 frames)
+# and 4 steps, since gloo stages every activation collective through the
+# host (at the flagship's 64 clips the D tap's h0 alone is 268 MB)
+TP_SP_RANKS, TP_SP_BATCH, TP_SP_STEPS = 4, 8, 4
+# the gradient check: one D and one G pass's gradients on each mesh against
+# one rank's, each net's largest gap within this share of its largest
+# gradient, or within TP_SP_FLOOR_X times one rank's own gap when the
+# clips are reversed, where that is larger (at the init the fake
+# activations sit below the vid-D BN's eps, and the G gradient that comes
+# back through it is mostly float32 cancellation)
+TP_SP_GRAD_TOL, TP_SP_FLOOR_X = 1e-4, 10
+TP_SP_MESHES = {
+    "dp2_tp2": ["--data-parallel", "2", "--tensor-parallel", "2"],
+    "dp2_sp2": ["--data-parallel", "2", "--seq-parallel", "2"],
+    "sp2_tp2": ["--seq-parallel", "2", "--tensor-parallel", "2"]}
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the H100 SXM data sheet's dense int8 tensor-core rate
 INT8_OPS = 1979e12
@@ -3872,10 +3910,11 @@ def _fsdp_collectives_ok():
     x = torch.arange(8, dtype=torch.float32, device=DEVICE)
     try:
         full = dg.all_gather(dg.rows(x), 0)
-        mean = dg.reduce_scatter_mean(x, 0)
+        total = dg.reduce_scatter(x, 0)
     except RuntimeError as e:
         return str(e).splitlines()[0]
-    if not (torch.equal(full, x) and torch.equal(mean, dg.rows(x))):
+    if not (torch.equal(full, x) and torch.equal(total,
+                                                 dg.rows(x) * dg.size)):
         return "wrong values"
     return ""
 
@@ -3902,13 +3941,18 @@ def mesh_rank(plan_path):
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
             t = time.perf_counter()
-            cli.main(argv)
+            (tp_sp_grads if argv[0] == "grads" else cli.main)(argv)
             torch.cuda.synchronize()
+            mesh = meshes[-1]
             report["runs"][name] = {
                 "seconds": time.perf_counter() - t,
                 "launches": read_counts(),
                 "peak_bytes": torch.cuda.max_memory_allocated(),
-                "bytes": dict(meshes[-1].data_group.bytes)}
+                "bytes": mesh.collective_bytes(),
+                "model_gathers": [
+                    [list(shape), n] for (kind, shape), n in
+                    mesh.group(MODEL_AXIS).shapes.items()
+                    if kind == "all_gather"]}
     with open(os.path.join(os.path.dirname(plan_path),
                            f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
@@ -4016,6 +4060,353 @@ def phase_mesh(seed):
     return counts
 
 
+def _tp_sp_plan(seed, workdir):
+    """mesh_tp_sp's commands: train-vid on each mesh of TP_SP_MESHES, and
+    the gradient check on each; the one-rank reference drops the mesh
+    flags."""
+    train = (["train-vid", "--device-corpus", "--chunk", "1",
+              "--steps-limit", str(TP_SP_STEPS), "--dataset-size",
+              str(MESH_CLIPS), "--batch-size", str(TP_SP_BATCH),
+              "--first-frame-loss-scalar", "1.0", "--sample-every", "0",
+              "--seed", str(seed)] + MESH_MODEL_FLAGS)
+    plan = []
+    for name, flags in TP_SP_MESHES.items():
+        plan.append((name, train + ["--run-dir", os.path.join(workdir, name)]
+                     + flags))
+        plan.append((f"grads_{name}", ["grads", os.path.join(
+            workdir, f"grads_{name}.pt"), str(seed)] + flags))
+    return train, plan
+
+
+def _grads_inputs(seed):
+    """The gradient check's flagship state (float32, TP_SP_BATCH clips),
+    frames (K1 from a synthetic corpus) and z, whole, on the card: the
+    seeded init that train-vid starts from."""
+    cfg, tcfg = flagship()
+    cfg, tcfg = _f32(cfg), dataclasses.replace(tcfg, batch_size=TP_SP_BATCH)
+    ts = vid.init_train_state(torch.Generator().manual_seed(seed), cfg,
+                              tcfg, device=DEVICE)
+    corpus = DeviceCorpus(synthetic_clips(TP_SP_BATCH, length=CLIP_LEN,
+                                          size=CLIP_SIZE), device=DEVICE)
+    frames = corpus.fold_sample_fn(corpus.data, torch.arange(
+        TP_SP_BATCH, device=DEVICE))
+    z = torch.rand(TP_SP_BATCH, cfg.z_input_size, device=DEVICE,
+                   generator=torch.Generator(device=DEVICE).manual_seed(
+                       seed)) * 2 - 1
+    return cfg, tcfg, ts, frames, z
+
+
+def _one_pass_grads(ts, frames, z, cfg, tcfg):
+    """({"d": D-pass gradients, "g": G-pass gradients} summed over the
+    ranks, the D pass's losses), from one state: no Adam update between
+    them, so float32 rounding is not amplified by one."""
+    d, m, _ = vid._d_grads(ts, frames, z, None, cfg, tcfg)
+    g, _, _ = vid._g_grads(ts, z, None, cfg, tcfg)
+    return ({"d": collectives.reduce_gradients(d, "opt_d",
+                                               per_clip=("vid",)),
+             "g": collectives.reduce_gradients(g, "opt_g")}, m)
+
+
+def tp_sp_grads(argv):
+    """A mesh_rank plan entry ["grads", OUT, SEED, mesh flags...]: one
+    D pass's and one G pass's gradients of the seeded flagship state on
+    that mesh (the steps' code, from _d_grads/_g_grads to
+    reduce_gradients), the model blocks made whole; rank 0 saves them to
+    OUT."""
+    out, seed, flags = argv[1], int(argv[2]), argv[3:]
+    ask = dict(zip(flags[::2], (int(v) for v in flags[1::2])))
+    mesh = cli._mesh_arg(argparse.Namespace(
+        data_parallel=ask.get("--data-parallel", 0),
+        seq_parallel=ask.get("--seq-parallel", 1),
+        tensor_parallel=ask.get("--tensor-parallel", 1)))
+    cfg, tcfg, ts, frames, z = _grads_inputs(seed)
+    sh = (ttp.vid_state_tp_shardings(mesh, ts, full=True)
+          if mesh.shape[MODEL_AXIS] > 1 else None)
+    ts = (tfsdp.place_state(ts, sh) if sh is not None
+          else shard_train_state(mesh, ts))
+    f_s, z_s = tsp.shard_vid_batch(mesh, frames, z)
+    with collectives.use_mesh(mesh, seq=mesh.shape["seq"] > 1):
+        grads, m = _one_pass_grads(ts, f_s, z_s, cfg, tcfg)
+    flat_sh = flatten(sh) if sh is not None else {}
+    whole = {}
+    for role, tree in grads.items():
+        for k, v in flatten(tree).items():
+            s = flat_sh.get(f"opt_{role}/mu/{k}")
+            whole[f"{role}/{k}"] = (v if s is None or s.dim is None else
+                                    mesh.group(MODEL_AXIS).all_gather(
+                                        v, s.dim)).cpu()
+    if dist.get_rank() == 0:
+        torch.save({"grads": whole,
+                    "metrics": {k: float(v) for k, v in m.items()}}, out)
+
+
+def grads_gap(got, want):
+    """{net: the largest gradient gap over the net's leaves, divided by
+    the net's largest gradient} ("d/vid", "g/vid", ...): a pre-BN bias,
+    whose true gradient is 0, is held to the net's scale, not its own."""
+    nets = collections.defaultdict(lambda: [0.0, 0.0])
+    for k, w in want.items():
+        net = "/".join(k.split("/")[:2])
+        w = w.double()
+        nets[net][0] = max(nets[net][0], float((got[k].double() - w).abs()
+                                               .max()))
+        nets[net][1] = max(nets[net][1], float(w.abs().max()))
+    return {net: gap / scale for net, (gap, scale) in nets.items()}
+
+
+def tp_block_shapes(cfg, tcfg, flags):
+    """The shapes of the blocks a rank holds of the split leaves of a
+    train-vid state on the mesh of `flags` (parallel/tp.py, full layout),
+    counted: what the final checkpoint's gather over `model` all-gathers,
+    once each."""
+    ask = dict(zip(flags[::2], (int(v) for v in flags[1::2])))
+    m = ask.get("--tensor-parallel", 1)
+    if m == 1:
+        return collections.Counter()
+    mesh = make_mesh(list(range(TP_SP_RANKS)),
+                     data_parallel=ask.get("--data-parallel", 0),
+                     seq_parallel=ask.get("--seq-parallel", 1),
+                     model_parallel=m)
+    ts = vid.init_train_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                              device="cpu")
+    sh = flatten(ttp.vid_state_tp_shardings(mesh, ts, full=True))
+    out = collections.Counter()
+    for k, v in flatten(ts).items():
+        if sh[k].dim is not None:
+            shape = list(v.shape)
+            shape[sh[k].dim] //= m
+            out[tuple(shape)] += 1
+    return out
+
+
+def tp_sp_bytes(cfg, tcfg, batch, d, s, m):
+    """What one train-vid step sends from a rank over each axis of a
+    (d, s, m) mesh, counted from the activations' and the leaves' shapes:
+    the tensor-parallel collectives of the image G and D, the vid-G MLP
+    and the vid-D (ops/nn.py forms: all-gathers and all-reduces forward,
+    reduce-scatters, all-gathers and all-reduces backward, the G passes
+    differentiating through every net, the D pass through the vid-D's
+    weights only), the seq gather of the tap before each vid-D call, and
+    the gradient all-reduce over data of this rank's trainable floats.
+    The BN moments, the loss sums and the BN vectors' gradients (a few KB)
+    are left out."""
+    img, f4 = cfg.image_gan, 4
+    sz, gf, df, c = img.output_size, img.gf_dim, img.df_dim, img.c_dim
+    rows, clips = batch * cfg.vid_length // (d * s), batch // d
+    h, t8 = cfg.hidden_dim, (cfg.vid_length + 1) // 2
+    px = lambda k: (sz // k) ** 2
+    g_in = [px(16) * 8 * gf, px(8) * 4 * gf, px(4) * 2 * gf, px(2) * gf]
+    g_out = g_in[1:] + [px(1) * c]
+    d_in = [px(2) * df, px(4) * 2 * df]              # h1, h2 inputs
+    tap = px(8) * 4 * df
+    v_in = [t8 * px(16) * cfg.d_filters, (t8 + 1) // 2 * px(32)
+            * cfg.d_filters]                           # vid-D h2, h3 inputs
+    v_out = (t8 + 3) // 4 * px(64) * cfg.d_filters
+    out = collections.Counter()
+    if m > 1:
+        img_g_fwd = rows * (g_in[0] / m + sum(g_out))
+        img_g_bwd = rows * (sum(g_in) / m + cfg.z_output_size)
+        img_d_fwd = rows * (sum(d_in) + tap) / m
+        img_d_bwd = rows * (sum(d_in) + px(1) * c)
+        vid_g_fwd = rows * (3 * h + cfg.z_output_size) / m
+        vid_g_bwd = rows * 3 * h
+        vid_d_fwd = clips * (sum(v_in) + v_out) / m
+        vid_d_bwd = clips * sum(v_in)
+        d_pass = (img_g_fwd + 2 * img_d_fwd + vid_g_fwd + 2 * vid_d_fwd
+                  + 2 * vid_d_bwd)
+        g_pass = (img_g_fwd + img_g_bwd + img_d_fwd + img_d_bwd + vid_g_fwd
+                  + vid_g_bwd + vid_d_fwd + vid_d_bwd
+                  + clips * cfg.vid_length * tap)
+        out["model"] = f4 * (tcfg.disc_updates * d_pass
+                             + tcfg.gen_updates * g_pass)
+    if s > 1:
+        out["seq"] = f4 * rows * tap * (2 * tcfg.disc_updates
+                                        + tcfg.gen_updates)
+    ts = vid.init_train_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                              device="cpu")
+    sh = flatten(ttp.vid_state_tp_shardings(make_mesh(
+        list(range(d * s * m)), data_parallel=d, seq_parallel=s,
+        model_parallel=m), ts, full=True)) if m > 1 else {}
+    local = lambda pre: sum(
+        v.numel() // (m if k in sh and sh[k].dim is not None else 1)
+        for k, v in flatten(ts).items() if k.startswith(pre))
+    # the vid-D's gradients over data, the vid-G's over (data, seq),
+    # named as Mesh.collective_bytes names that group
+    if d > 1:
+        out["data"] += f4 * tcfg.disc_updates * local("params/vid_disc")
+    frames = ("data+seq" if d > 1 and s > 1 else "data" if d > 1
+              else "seq" if s > 1 else None)
+    if frames:
+        out[frames] += f4 * tcfg.gen_updates * local("params/vid_gen")
+    return {k: int(v) for k, v in out.items()}
+
+
+def phase_mesh_tp_sp(seed):
+    """The seq and model axes: four gloo ranks sharing the card, started by
+    torch.distributed.run, run train-vid through the CLI (mesh_rank) on
+    each mesh of TP_SP_MESHES; the same command on one rank in this process
+    is the reference. Returns the K1 launches of each run."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        train, plan = _tp_sp_plan(seed, workdir)
+        plan_path = os.path.join(workdir, "plan.json")
+        with open(plan_path, "w") as f:
+            json.dump(plan, f)
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(TP_SP_RANKS),
+             os.path.join(REPO, "chip_smoke.py"), "--mesh-rank", plan_path],
+            cwd=REPO, timeout=MESH_TIMEOUT_S,
+            env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+            text=True)
+        if proc.returncode:
+            print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
+        check(proc.returncode == 0, f"the {TP_SP_RANKS} ranks exit 0 "
+                                    f"(rc {proc.returncode})")
+        say("mesh_tp_sp", ranks=TP_SP_RANKS,
+            seconds=f"{time.perf_counter() - t:.1f}")
+        reports = []
+        for r in range(TP_SP_RANKS):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+        one = os.path.join(workdir, "one_rank")
+        with exact_f32():
+            reset_counts()
+            t = time.perf_counter()
+            cli.main(train + ["--run-dir", one])
+            torch.cuda.synchronize()
+            one_launches = read_counts()
+        check(one_launches["gather_rows_scaled"] == TP_SP_STEPS,
+              f"one rank: K1 once a step: {one_launches}")
+        ref = _records(one)
+        doc = load_config(os.path.join(one, "params.json"))
+        cfg, tcfg = doc["model"], doc["train"]
+        ms_one = [1e3 / r["steps_per_sec"] for r in ref[1:]]
+        say("mesh_tp_sp", run="one_rank",
+            seconds=f"{time.perf_counter() - t:.1f}",
+            ms_per_step_warm_median=f"{float(np.median(ms_one)):.1f}",
+            launches=one_launches)
+        counts = {"one_rank": one_launches}
+        keys = ("d_loss", "d_loss_real", "d_loss_fake", "g_loss",
+                "first_frame_loss")
+        gates = []
+        # one rank's gradients, and the same with the clips in reverse
+        # order: the same sums in another order, the float32 floor that
+        # the mesh's gaps are held to
+        whole = lambda g: {f"{role}/{k}": v.cpu() for role, tree in
+                           g.items() for k, v in flatten(tree).items()}
+        with exact_f32():
+            gcfg, gtcfg, gts, frames, z = _grads_inputs(seed)
+            ref_grads, ref_m = _one_pass_grads(gts, frames, z, gcfg, gtcfg)
+            rev = torch.arange(TP_SP_BATCH - 1, -1, -1, device=DEVICE)
+            rows = (rev[:, None] * gcfg.vid_length + torch.arange(
+                gcfg.vid_length, device=DEVICE)).reshape(-1)
+            rev_grads, _ = _one_pass_grads(gts, frames[rows], z[rev], gcfg,
+                                           gtcfg)
+        ref_grads = whole(ref_grads)
+        floor = grads_gap(whole(rev_grads), ref_grads)
+        say("mesh_tp_sp", run="one_rank_clips_reversed",
+            grads_gap_by_net=json.dumps({k: float(f"{v:.3g}")
+                                         for k, v in floor.items()}))
+        for name, argv in plan:
+            if name.startswith("grads_"):
+                got = torch.load(argv[1], weights_only=False)
+                gap = grads_gap(got["grads"], ref_grads)
+                loss = max(abs(got["metrics"][k] - float(ref_m[k]))
+                           for k in ("d_loss", "d_loss_real", "d_loss_fake"))
+                bound = {k: max(TP_SP_GRAD_TOL, TP_SP_FLOOR_X * floor[k])
+                         for k in gap}
+                gates.append((all(gap[k] <= bound[k] for k in gap)
+                              and loss <= MESH_CLI_TOL,
+                              f"{name}: one D and one G pass's gradients "
+                              f"{gap} within {bound} of each net's "
+                              f"largest, D losses {loss}"))
+                say("mesh_tp_sp", run=name, grads_gap_by_net=json.dumps(
+                    {k: float(f"{v:.3g}") for k, v in gap.items()}),
+                    d_loss_gap=f"{loss:.3g}")
+                continue
+            run_dir = os.path.join(workdir, name)
+            blocks = tp_block_shapes(cfg, tcfg, TP_SP_MESHES[name])
+            ask = dict(zip(argv[-len(TP_SP_MESHES[name])::2],
+                           argv[-len(TP_SP_MESHES[name]) + 1::2]))
+            axes = (int(ask.get("--data-parallel", 1)),
+                    int(ask.get("--seq-parallel", 1)),
+                    int(ask.get("--tensor-parallel", 1)))
+            axes = (TP_SP_RANKS // (axes[1] * axes[2]),) + axes[1:]
+            want_bytes = tp_sp_bytes(cfg, tcfg, TP_SP_BATCH, *axes)
+            ckpt_bytes = 4 * sum(math.prod(k) * n for k, n in blocks.items())
+            for r, rep in enumerate(reports):
+                run = rep["runs"][name]
+                counts[f"rank{r}_{name}"] = run["launches"]
+                check(run["launches"]["gather_rows_scaled"] == TP_SP_STEPS,
+                      f"rank {r} {name}: K1 once a step: {run['launches']}")
+                weights = collections.Counter({
+                    tuple(shape): n for shape, n in run["model_gathers"]
+                    if tuple(shape) in blocks})
+                check(weights == blocks, f"rank {r} {name}: the only "
+                      f"weight-shaped gathers over model are the "
+                      f"checkpoint's: {dict(weights)} vs {dict(blocks)}")
+                # per step: every kind but the placement's broadcast, less
+                # the checkpoint's gather over model
+                per_step = {ax: (sum(v for k, v in kinds.items()
+                                     if k != "broadcast")
+                                 - (ckpt_bytes if ax == "model" else 0))
+                            // TP_SP_STEPS
+                            for ax, kinds in run["bytes"].items()
+                            if set(kinds) != {"broadcast"}}
+                say("mesh_tp_sp", run=name, rank=r,
+                    bytes_per_step=json.dumps(per_step),
+                    counted_bytes_per_step=json.dumps(want_bytes),
+                    seconds=f"{run['seconds']:.2f}",
+                    peak_bytes=run["peak_bytes"],
+                    collective_bytes=json.dumps(run["bytes"]),
+                    weight_gathers_in_steps=sum(weights.values())
+                    - sum(blocks.values()), launches=run["launches"])
+            got = _records(run_dir)
+            check([r["step"] for r in got] == list(range(
+                1, TP_SP_STEPS + 1)), f"{name}: one record a step (rank 0 "
+                                      f"alone writes)")
+            gaps = [max(abs(a[k] - b[k]) for k in keys)
+                    for a, b in zip(got, ref)]
+            first = {k: abs(got[0][k] - ref[0][k]) for k in keys}
+            gates.append((max(first[k] for k in keys[:3]) <= MESH_CLI_TOL,
+                          f"{name}: first step's D losses {first} within "
+                          f"{MESH_CLI_TOL} of one rank"))
+            check(all(math.isfinite(r[k]) for r in got for k in keys),
+                  f"{name}: finite losses")
+            # the checkpoint rank 0 wrote from the gathered state, restored
+            # in this process, trains a step
+            ck = os.path.join(run_dir, "checkpoints")
+            check(ckpt.all_steps(ck) == [TP_SP_STEPS], f"{name}: the final "
+                                                       f"checkpoint")
+            _, ts = vid.load_vid_train_state(ck, device=DEVICE)
+            corpus = DeviceCorpus(synthetic_clips(
+                TP_SP_BATCH, length=cfg.vid_length,
+                size=cfg.image_gan.output_size), device=DEVICE)
+            frames = corpus.fold_sample_fn(corpus.data, torch.arange(
+                TP_SP_BATCH, device=DEVICE))
+            z = torch.rand(TP_SP_BATCH, cfg.z_input_size, device=DEVICE,
+                           generator=torch.Generator(device=DEVICE)
+                           .manual_seed(seed)) * 2 - 1
+            with exact_f32():
+                ts, m = vid.train_step(ts, frames, z, None, cfg, tcfg)
+            check(int(ts.step) == TP_SP_STEPS + 1
+                  and all(math.isfinite(float(v)) for v in m.values()),
+                  f"{name}: its checkpoint restores and trains a step")
+            ms = [1e3 / r["steps_per_sec"] for r in got[1:]]
+            say("mesh_tp_sp", run=name, flags=" ".join(TP_SP_MESHES[name]),
+                first_step_gaps=json.dumps({k: float(f"{v:.3g}")
+                                            for k, v in first.items()}),
+                loss_gap_by_step=",".join(f"{x:.3g}" for x in gaps),
+                ms_per_step_warm_median=f"{float(np.median(ms)):.1f}",
+                restored_step_d_loss=f"{float(m['d_loss']):.6f}")
+    say("mesh_tp_sp", seconds=f"{time.perf_counter() - t0:.1f}")
+    for ok, what in gates:
+        check(ok, what)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4091,6 +4482,7 @@ def main(argv=None) -> int:
     wf_dir.cleanup()
     cascade_dir.cleanup()
     new_paths["mesh"] = phase_mesh(args.seed)
+    new_paths["mesh_tp_sp"] = phase_mesh_tp_sp(args.seed)
 
     line = []
     for k in KERNELS:

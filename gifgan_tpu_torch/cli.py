@@ -8,14 +8,14 @@ The commands `train-dcgan`, `train-vid`, `train-recurrent`, `sample-wall`,
 `survey-serve`, `survey-pairs`, `bench`, `ckpt-downgrade` and
 `ckpt-inspect` (all 27 of the JAX package's), with the flags of the JAX
 package's (gifgan_tpu/cli.py), plus `--device` where a command touches
-the card: it runs on the CUDA card unless `--device cpu` is given. Not
-here: `--tensor-parallel` and `--seq-parallel` (tensor and sequence
-parallelism are not ported).
+the card: it runs on the CUDA card unless `--device cpu` is given.
 
-`--data-parallel`/`--fsdp` run one process a rank, as torchrun starts
-them (`torchrun --nproc-per-node N -m gifgan_tpu_torch train-vid
---data-parallel N [--fsdp] ...`): `main` joins the process group first
-(parallel/distributed.py initialize; inert in a single process).
+`--data-parallel`/`--fsdp`, and train-vid's `--tensor-parallel` and
+`--seq-parallel`, run one process a rank, as torchrun starts them
+(`torchrun --nproc-per-node N -m gifgan_tpu_torch train-vid
+--data-parallel D --seq-parallel S --tensor-parallel M ...`, D*S*M = N):
+`main` joins the process group first (parallel/distributed.py
+initialize; inert in a single process).
 `invert`, `z-extract` and `train-recurrent` write GIFs where the JAX
 package writes mp4s; `invert`, `face-detect` and the image directories of
 `train-dcgan` and `eval-fad` are read with cv2, as are the webcam
@@ -33,19 +33,25 @@ import numpy as np
 
 def _mesh_arg(args):
     """--data-parallel semantics: 0 = all ranks (no mesh when there is only
-    one), 1 = explicitly no mesh, N>1 = N-way data parallel (N must equal
-    the world size, as the JAX mesh must cover its devices)."""
+    one), 1 = explicitly no mesh, N>1 = N-way data parallel (the mesh must
+    cover the world's ranks, as the JAX mesh its devices).
+    --tensor-parallel / --seq-parallel (train-vid) add `model` / `seq` mesh
+    axes; any value > 1 forces a mesh (the data axis takes the remaining
+    ranks unless --data-parallel pins it)."""
     import torch.distributed as dist
 
     from gifgan_tpu_torch.core.mesh import make_mesh
 
     dp = getattr(args, "data_parallel", 0)
-    if dp == 1:
-        return None
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    if dp == 0 and world == 1:
-        return None
-    return make_mesh(data_parallel=dp)
+    tp = getattr(args, "tensor_parallel", 1) or 1
+    sp = getattr(args, "seq_parallel", 1) or 1
+    if tp <= 1 and sp <= 1:
+        if dp == 1:
+            return None
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if dp == 0 and world == 1:
+            return None
+    return make_mesh(data_parallel=dp, model_parallel=tp, seq_parallel=sp)
 
 
 def _primary() -> bool:
@@ -921,6 +927,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="closed-loop collapse controller "
                         "(train/controller.py): per-chunk d_loss drives the "
                         "noise and D-lr knobs")
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="ranks on the mesh `model` axis: conv/linear "
+                        "weights AND Adam slots channel-sharded "
+                        "(parallel/tp.py full layout). Composes with "
+                        "--data-parallel/--seq-parallel; not with --fsdp")
+    p.add_argument("--seq-parallel", type=int, default=1,
+                   help="ranks on the mesh `seq` axis: the time dimension "
+                        "WITHIN each clip shards over ranks "
+                        "(parallel/sp.py) — reaches the few-long-clips "
+                        "regime plain DP cannot. Composes with "
+                        "--data-parallel/--tensor-parallel/"
+                        "--auto-intervene")
     p.set_defaults(fn=cmd_train_vid)
 
     p = sub.add_parser("train-recurrent",

@@ -63,6 +63,17 @@ def _perm(key: str, ndim: int):
     return _TO_PORT.get(ndim)
 
 
+def jax_shape(key: str, shape) -> tuple:
+    """(the JAX package's shape of the leaf at state path `key` whose port
+    shape is `shape`, the port dim of each JAX dim)."""
+    shape = tuple(shape)
+    perm = _perm(key, len(shape))
+    if perm is None:
+        return shape, list(range(len(shape)))
+    return (tuple(shape[list(perm).index(i)] for i in range(len(shape))),
+            [list(perm).index(i) for i in range(len(shape))])
+
+
 def from_jax_flat(flat: Dict[str, np.ndarray], device=None) -> Dict[str, Any]:
     """JAX flat checkpoint dict -> nested dict of port tensors on `device`."""
     device = resolve_device(device)

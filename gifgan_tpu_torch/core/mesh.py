@@ -10,17 +10,24 @@ model) grid of ranks, and a sharding says what a rank holds:
 - `data_sharding`: this rank's contiguous rows of the global batch (jax's
   P("data", None, ...) on one device);
 - `replicated_sharding`: the whole array, equal on every rank (broadcast
-  from the first rank of the data axis).
+  from the mesh's first rank);
+- `Sharding(mesh, dim, axis)`: this rank's block of `dim` over one axis or
+  a composite of axes, such as a weight's out-channels over `model`
+  (parallel/tp.py) or time-folded frames over `(data, seq)`
+  (parallel/sp.py, rows b-major/t-minor: the composite index is
+  data-major).
 
-The data axis carries the work (parallel/dp.py, parallel/fsdp.py). The
-seq and model axes are accepted here and refused by the train loops: the
-layers' own collectives of tensor and sequence parallelism are not ported.
+`Mesh` makes the process groups of every axis and of the composites
+`(data, seq)` and `(data, seq, model)` when it is built (new_group is
+collective: every rank makes every group, in one order), and
+`mesh.group(axes)` is this rank's parallel/collectives.DataGroup over one
+of them. The steps reduce over them explicitly (parallel/collectives.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,6 +48,16 @@ def _rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+# the axis sets a mesh makes groups for: each axis, the frames' composite
+# (data, seq) and the whole mesh
+AXIS_SETS = ((DATA_AXIS,), (SEQ_AXIS,), (MODEL_AXIS,), (DATA_AXIS, SEQ_AXIS),
+             (DATA_AXIS, SEQ_AXIS, MODEL_AXIS))
+
+
+def _axes(axis) -> tuple:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
 class Mesh:
     """A (data, seq, model) grid of ranks. `shape` maps each axis name to
     its size, as jax's Mesh.shape does."""
@@ -50,42 +67,68 @@ class Mesh:
         self.axis_names = (DATA_AXIS, SEQ_AXIS, MODEL_AXIS)
         self.shape = dict(zip(self.axis_names, devices.shape))
         self.size = int(devices.size)
-        self._data_group = None
-        # the data axis of this rank: the ranks that share its seq and model
-        # coordinates. new_group is collective, so every rank makes every
-        # column's group, in one order, here.
-        self._group = None
-        if dist.is_initialized() and 1 < self.size <= _world() and (
-                self.size != _world() or devices.shape[0] != self.size):
-            cols = devices.reshape(devices.shape[0], -1)
-            for c in range(cols.shape[1]):
-                g = dist.new_group([int(r) for r in cols[:, c]])
-                if _rank() in cols[:, c]:
-                    self._group = g
+        # per axis set: the member ranks of this rank's group, in block
+        # order, and the group's handle (None: the default group, or one
+        # rank)
+        self._members, self._handles, self._groups = {}, {}, {}
+        on = dist.is_initialized() and 1 < self.size <= _world()
+        made = {}
+        for axes in AXIS_SETS:
+            keep = [self.axis_names.index(a) for a in axes]
+            other = [d for d in range(3) if d not in keep]
+            n = int(np.prod([devices.shape[d] for d in keep]))
+            rows = devices.transpose(other + keep).reshape(-1, n)
+            for row in rows:
+                members = tuple(int(r) for r in row)
+                if on and n > 1 and members != tuple(range(_world())) \
+                        and members not in made:
+                    made[members] = dist.new_group(list(members))
+                if _rank() in members:
+                    self._members[axes] = members
+                    self._handles[axes] = made.get(members)
 
-    @property
-    def data_group(self):
-        """This rank's parallel/collectives.DataGroup on the data axis, made
-        once a mesh."""
-        if self._data_group is None:
+    def group(self, axis=DATA_AXIS):
+        """This rank's parallel/collectives.DataGroup over `axis` (a name
+        or a tuple of names: a composite, blocks data-major), made once a
+        mesh; axis sets with the same ranks share one."""
+        axes = _axes(axis)
+        members = self._members.get(axes, (_rank(),))
+        if members not in self._groups:
             from gifgan_tpu_torch.parallel.collectives import DataGroup
 
-            n = self.shape[DATA_AXIS]
+            n = int(np.prod([self.shape[a] for a in axes]))
             if n > 1 and not dist.is_initialized():
                 raise RuntimeError(
-                    f"a mesh with {n} ranks on its data axis needs an "
-                    "initialized process group (parallel/distributed.py "
-                    "initialize)")
+                    f"a mesh with {n} ranks on its {'x'.join(axes)} axis "
+                    "needs an initialized process group "
+                    "(parallel/distributed.py initialize)")
             if n > 1 and (self.size > _world()
                           or _rank() not in self.devices):
                 raise RuntimeError(f"rank {_rank()} of {_world()} is not on "
                                    f"the mesh {self.devices.tolist()}")
             # a block's index is the rank's place in its group, the order
             # of all_gather and reduce_scatter
-            index = (dist.get_rank(self._group) if self._group is not None
-                     else _rank() if n > 1 else 0)
-            self._data_group = DataGroup(self._group, index, n)
-        return self._data_group
+            index = members.index(_rank()) if n > 1 else 0
+            self._groups[members] = DataGroup(self._handles.get(axes),
+                                              index, n, "+".join(axes))
+        return self._groups[members]
+
+    @property
+    def data_group(self):
+        """This rank's DataGroup on the data axis."""
+        return self.group(DATA_AXIS)
+
+    def collective_bytes(self) -> dict:
+        """What each collective kind sent from this rank, by axis set
+        ("data", "seq", "model", "data+seq", "data+seq+model"; an axis set
+        whose group is another's is counted under the first)."""
+        out, seen = {}, set()
+        for axes in AXIS_SETS:
+            g = self.group(axes)
+            if g.size > 1 and id(g) not in seen:
+                seen.add(id(g))
+                out["+".join(axes)] = dict(g.bytes)
+        return out
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
@@ -121,17 +164,18 @@ def make_mesh(devices: Optional[Sequence[int]] = None,
 class Sharding:
     """What a rank holds of an array: `dim` None is the whole array (equal
     on every rank); else this rank's contiguous block of that dim, one of
-    `mesh.shape["data"]` equal blocks. (Not a NamedTuple: a tree of them
-    flattens to one leaf each.)"""
+    as many equal blocks as `axis` (a name or a composite tuple) has
+    ranks. (Not a NamedTuple: a tree of them flattens to one leaf each.)"""
     mesh: Mesh
     dim: Optional[int]
+    axis: Union[str, Tuple[str, ...]] = DATA_AXIS
 
     def place(self, x: torch.Tensor) -> torch.Tensor:
-        """The counterpart of jax.device_put(x, sharding) on this rank."""
-        dg = self.mesh.data_group
+        """The counterpart of jax.device_put(x, sharding) on this rank, for
+        an `x` equal on every rank (a global batch): its block."""
         if self.dim is None:
-            return dg.broadcast(x)
-        return dg.rows(x, self.dim)
+            return self.mesh.group(AXIS_SETS[-1]).broadcast(x)
+        return self.mesh.group(self.axis).rows(x, self.dim)
 
 
 def data_sharding(mesh: Mesh, ndim: int = 1) -> Sharding:
@@ -160,5 +204,5 @@ def shard_batch(mesh: Mesh, batch):
 
 
 def replicate(mesh: Mesh, tree):
-    """A tree equal on every rank of the data axis (its first rank's)."""
+    """A tree equal on every rank of the mesh (its first rank's)."""
     return _map(tree, replicated_sharding(mesh).place)

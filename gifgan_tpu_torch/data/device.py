@@ -19,7 +19,11 @@ ids and gathers this rank's block of the last idx axis ((B,) ids -> its
 rows of the batch, (K, B) -> its columns), the counterpart of the JAX
 sample's output sharded over `data` along that axis. `sample_fn` and
 `fold_sample_fn` gather the ids they are given: a mesh step hands them the
-rank's ids (parallel/dp.py make_sharded_step).
+rank's ids (parallel/dp.py make_sharded_step). In a sequence-parallel step
+(parallel/sp.py make_sp_step(folded=False)) `fold_sample_fn` gathers only
+this rank's seq block of its clips' time-folded frames: the corpus viewed
+as (N*T, frame) rows, one gather of those rows (K1 once a step on every
+rank; the ranks that share a data index share ids).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 
 from gifgan_tpu_torch import resolve_device
 from gifgan_tpu_torch.kernels.gather import gather_rows_scaled
+from gifgan_tpu_torch.parallel import collectives
 
 
 class DeviceCorpus:
@@ -74,7 +79,8 @@ class DeviceCorpus:
         """(M, D) float32 of the clamped rows, scaled."""
         if self.method == "kernel":
             return gather_rows_scaled(data, flat)
-        rows = torch.index_select(data, 0, flat.long().clamp(0, self.n - 1))
+        rows = torch.index_select(data, 0,
+                                  flat.long().clamp(0, data.shape[0] - 1))
         g = rows.to(torch.float32)
         return g / 255.0 if self.out_range == "unit" else g / 127.5 - 1.0
 
@@ -88,9 +94,18 @@ class DeviceCorpus:
         """(data, (B,) idx) -> (B*T, *frame_shape), time folded into batch
         (train_chunk_ids' layout; a reshape of the contiguous rows, no
         copy). out_dtype: None keeps float32; else one rounding of the f32
-        values."""
-        g = self._rows(data, idx.reshape(-1)).reshape(
-            (-1,) + self.item_shape[1:])
+        values. In a sequence-parallel step: this rank's seq block of the
+        (B*T) rows."""
+        seq = collectives.seq_group()
+        if seq is None:
+            g = self._rows(data, idx.reshape(-1))
+        else:
+            t = self.item_shape[0]
+            r = seq.rows(torch.arange(idx.numel() * t, device=idx.device))
+            clips = idx.reshape(-1).long().clamp(0, self.n - 1)
+            g = self._rows(data.view(self.n * t, -1), clips[r // t] * t
+                           + r % t)
+        g = g.reshape((-1,) + self.item_shape[1:])
         return g.to(out_dtype) if out_dtype is not None else g
 
     def sample(self, idx) -> torch.Tensor:

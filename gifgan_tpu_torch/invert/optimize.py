@@ -270,7 +270,6 @@ def _run_chunk(problem: InversionProblem, z: Tensor, opt_state: AdamState,
         with torch.enable_grad(), _in_group(problem):
             loss, _ = problem.loss_fn(zg)
             (grad,) = torch.autograd.grad(loss, zg)
-            grad = collectives.local_gradient(grad)
         updates, opt_state = _make_opt(icfg, step).update({"z": grad},
                                                           opt_state)
         z = z + updates["z"]

@@ -8,6 +8,13 @@ h2 map (s/8, s/8, 4df) as a tap — the input of the video discriminator.
 
 One function per net with a `train` flag; BN running moments are explicit
 state. Parameters are dicts of float32 tensors (ops/nn.py layouts).
+
+Under tensor parallelism (parallel/tp.py blocks, ops/nn.py forms) the
+nets keep every activation between layers whole except the
+column-parallel layers' outputs, and gather those where a reshape or the
+tap needs every channel: h0_lin's output is sharded over its flat
+(s16*s16*8gf) dim, that is over spatial positions, so it is gathered
+before the reshape into channels.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ def generator(params, state, z: Tensor, cfg: DCGANConfig, train: bool,
     s16, gf = cfg.output_size // 16, cfg.gf_dim
     new_state = {}
     h = nn.linear(params["h0_lin"], z.to(dtype), dtype=dtype)
+    h = nn.gather_channels(h, s16 * s16 * gf * 8)
     h = h.reshape(-1, s16, s16, gf * 8)
     h, new_state["bn0"] = nn.batch_norm(params["bn0"], state["bn0"], h, train)
     h = torch.relu(h)
@@ -89,7 +97,8 @@ def discriminator_tap(params, state, x: Tensor, cfg: DCGANConfig,
 
     The video GAN reads only the tap. XLA drops the unused h3 layers from
     the JAX program; eager PyTorch would run them, so the video path calls
-    this instead of `discriminator`."""
+    this instead of `discriminator`. The tap comes back whole (gathered
+    over the model axis under tensor parallelism)."""
     dtype = nn.torch_dtype(cfg.compute_dtype)
     new_state = {}
     impl0 = "s2d" if cfg.packed_c3 else None
@@ -100,7 +109,7 @@ def discriminator_tap(params, state, x: Tensor, cfg: DCGANConfig,
     h = nn.lrelu(h)
     h = nn.conv2d(params["h2_conv"], h, dtype=dtype)
     h, new_state["bn2"] = nn.batch_norm(params["bn2"], state["bn2"], h, train)
-    return nn.lrelu(h), new_state
+    return nn.gather_channels(nn.lrelu(h), cfg.df_dim * 4), new_state
 
 
 def discriminator(params, state, x: Tensor, cfg: DCGANConfig, train: bool,
@@ -110,7 +119,7 @@ def discriminator(params, state, x: Tensor, cfg: DCGANConfig, train: bool,
     h2, new_state = discriminator_tap(params, state, x, cfg, train)
     h = nn.conv2d(params["h3_conv"], h2, dtype=dtype)
     h, new_state["bn3"] = nn.batch_norm(params["bn3"], state["bn3"], h, train)
-    h = nn.lrelu(h)
+    h = nn.gather_channels(nn.lrelu(h), cfg.df_dim * 8)
     logits = nn.linear(params["h3_lin"], h.reshape(h.shape[0], -1),
                        dtype=dtype)
     return logits.float(), h2, new_state

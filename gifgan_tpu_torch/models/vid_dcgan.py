@@ -13,6 +13,15 @@ reshaped to (B, T, h, w, c) and passed through three 3x3x3/2 conv3ds
 Parameters and state are dicts keyed "vid_generator", "vid_discriminator",
 "img_generator", "img_discriminator" (the JAX package's VidGANParams
 fields, so checkpoint paths match).
+
+In a sequence-parallel step (parallel/sp.py) a rank holds a block of the
+time-folded rows, over the (data, seq) composite: the MLP takes its block
+of `frame_inputs`, and the video discriminator gathers its clips' frames
+over `seq` first (the JAX package's vid_d_sharding wall), so every seq
+rank runs it alike on whole clips, its BN over the clips
+(parallel/collectives.py per_clip). Under tensor parallelism the MLP's
+output and h3's are gathered over `model` where the image generator and
+the replicated h4_lin need every channel.
 """
 
 from __future__ import annotations
@@ -58,9 +67,10 @@ def frame_inputs(z: Tensor, cfg: VidGANConfig) -> Tensor:
 
 def vid_generator(params, state, z: Tensor, cfg: VidGANConfig, train: bool,
                   ) -> Tuple[Tensor, Dict]:
-    """z (B, z_in) -> frame latents (B*T, z_out) float32 in [-1, 1]."""
+    """z (B, z_in) -> frame latents (B*T, z_out) float32 in [-1, 1]: this
+    rank's seq block of the rows in a sequence-parallel step."""
     dtype = nn.torch_dtype(cfg.compute_dtype)
-    h = frame_inputs(z, cfg).to(dtype)
+    h = collectives.seq_rows(frame_inputs(z, cfg)).to(dtype)
     new_state = {}
     for i in range(3):
         h = nn.linear(params[f"lin{i}"], h, dtype=dtype)
@@ -68,7 +78,8 @@ def vid_generator(params, state, z: Tensor, cfg: VidGANConfig, train: bool,
             params[f"bn{i}"], state[f"bn{i}"], h, train)
         h = torch.relu(h)
     h = nn.linear(params["lin3"], h, dtype=dtype)
-    return torch.tanh(h.float()), new_state
+    return nn.gather_channels(torch.tanh(h.float()),
+                              cfg.z_output_size), new_state
 
 
 def init_vid_discriminator(gen: torch.Generator, cfg: VidGANConfig,
@@ -92,20 +103,26 @@ def init_vid_discriminator(gen: torch.Generator, cfg: VidGANConfig,
 
 def vid_discriminator(params, state, activations: Tensor, cfg: VidGANConfig,
                       train: bool) -> Tuple[Tensor, Dict]:
-    """activations (B*T, h, w, c) -> (logits (B, 1) float32, new BN state)."""
+    """activations (B*T, h, w, c) -> (logits (B, 1) float32, new BN state).
+    In a sequence-parallel step the rows are this rank's (data, seq) block
+    and the logits its data block's clips."""
     dtype = nn.torch_dtype(cfg.compute_dtype)
     t = cfg.vid_length
+    activations = collectives.gather_seq(activations)
     bt, hh, ww, c = activations.shape
     b = bt // t
     vid = activations.reshape(b, t, hh, ww, c).to(dtype)
     new_state = {}
-    h = nn.lrelu(nn.conv3d(params["h1_conv"], vid, dtype=dtype))
-    h = nn.conv3d(params["h2_conv"], h, dtype=dtype)
-    h, new_state["bn2"] = nn.batch_norm(params["bn2"], state["bn2"], h, train)
-    h = nn.lrelu(h)
-    h = nn.conv3d(params["h3_conv"], h, dtype=dtype)
-    h, new_state["bn3"] = nn.batch_norm(params["bn3"], state["bn3"], h, train)
-    h = nn.lrelu(h)
+    with collectives.per_clip():
+        h = nn.lrelu(nn.conv3d(params["h1_conv"], vid, dtype=dtype))
+        h = nn.conv3d(params["h2_conv"], h, dtype=dtype)
+        h, new_state["bn2"] = nn.batch_norm(params["bn2"], state["bn2"], h,
+                                            train)
+        h = nn.lrelu(h)
+        h = nn.conv3d(params["h3_conv"], h, dtype=dtype)
+        h, new_state["bn3"] = nn.batch_norm(params["bn3"], state["bn3"], h,
+                                            train)
+        h = nn.gather_channels(nn.lrelu(h), cfg.d_filters)
     logits = nn.linear(params["h4_lin"], h.reshape(b, -1), dtype=dtype)
     return logits.float(), new_state
 
@@ -141,7 +158,17 @@ def generate_videos(params, state, z: Tensor, cfg: VidGANConfig, train: bool,
 def first_frame_loss(g_out: Tensor, z: Tensor, cfg: VidGANConfig) -> Tensor:
     """MSE between the generated frame-0 latents (every T-th row of the
     time-folded g_out) and z[:, :z_out]; over the logical batch in a mesh
-    step (parallel/collectives.py)."""
-    first = g_out[::cfg.vid_length]
-    target = z[:, :cfg.z_output_size]
-    return collectives.mean(torch.square(first - target))
+    step (parallel/collectives.py). Frame 0 is picked by its row's index
+    among the clips' rows: a rank of a sequence-parallel step holds a block
+    that may start inside a clip, or hold no frame 0."""
+    t = cfg.vid_length
+    start = collectives.seq_offset(g_out.shape[0])
+    first = (-start) % t
+    rows = g_out[first::t]
+    clip = (start + first) // t
+    sq = torch.square(rows - z[clip:clip + rows.shape[0],
+                               :cfg.z_output_size])
+    if collectives.active() is None:
+        return torch.mean(sq)
+    clips = g_out.shape[0] * collectives.rows_size() // t
+    return collectives.sum_rows(sq.sum()) / (clips * cfg.z_output_size)

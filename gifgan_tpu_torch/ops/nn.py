@@ -11,11 +11,33 @@ the reference; BatchNorm math runs in float32 and is cast back.
 The convolutions themselves are PyTorch's (cuDNN on the card): the JAX
 package leaves them to XLA, not to a Pallas kernel.
 
-In a mesh step (parallel/dp.py) each rank holds its rows of the batch, and
-the reductions over the batch axis (batch_norm's moments, get_std,
-sigmoid_ce's mean) and add_noise's draw go through
-parallel/collectives.py, which the step's context points at its data
-group; outside a mesh step they are the one-process arithmetic.
+In a mesh step (parallel/dp.py, parallel/sp.py) each rank holds its rows
+of the batch, and the reductions over the batch axis (batch_norm's
+moments, get_std, sigmoid_ce's mean) and add_noise's draw go through
+parallel/collectives.py, which the step's context points at its groups;
+outside a mesh step they are the one-process arithmetic.
+
+Tensor parallelism (the JAX package's parallel/tp.py layout, which XLA's
+partitioner completes there): on a step's model axis a weight that
+parallel/tp.py split holds this rank's block, and each layer takes its
+Megatron form from the shapes it is given, with the bias (always whole)
+as the reference:
+
+- conv2d (and its s2d form), conv3d and linear are column-parallel when
+  their weight holds a block of the out-channels: a whole input enters
+  through `to_model`, a channel-sharded one is gathered (its cotangent
+  reduce-scattered), and the output is this rank's channels;
+- deconv2d (and its subpixel form) is row-parallel when its weight holds
+  a block of the in-channels: this rank's input channels, the partial
+  sums all-reduced, then the bias;
+- batch_norm on a channel-sharded input normalizes this rank's channels
+  with its slice of the whole gamma, beta and running moments, and
+  returns the whole running moments, equal on every model rank;
+- `gather_channels` makes a sharded activation whole where a reshape or a
+  replicated layer needs every channel.
+
+No layer gathers a weight. A weight left whole (its dim not divisible by
+the axis) runs the plain layer on whole inputs.
 """
 
 from __future__ import annotations
@@ -77,6 +99,29 @@ def _bias(params, dtype) -> Optional[Tensor]:
     return None if b is None else b.to(dtype)
 
 
+def _column(params, x: Tensor, in_dim: int, out_dim: int):
+    """(params, x) of a layer with weight dims (in_dim, out_dim) under
+    tensor parallelism: a column-parallel layer's bias block and input
+    (module docstring), or a whole weight's whole input."""
+    if collectives.model_group() is None or "b" not in params:
+        return params, x
+    w, b = params["w"], params["b"]
+    sharded_in = x.shape[-1] != w.shape[in_dim]
+    if w.shape[out_dim] == b.shape[0]:
+        return params, collectives.gather_model(x) if sharded_in else x
+    x = (collectives.gather_model(x, summed=True) if sharded_in
+         else collectives.to_model(x))
+    return dict(params, b=collectives.split_model(b)), x
+
+
+def gather_channels(x: Tensor, channels: int) -> Tensor:
+    """x with all `channels` on its last dim: a model-sharded activation
+    gathered (every rank then computes alike from it), else x."""
+    if x.shape[-1] == channels:
+        return x
+    return collectives.gather_model(x)
+
+
 def _nchw(x: Tensor) -> Tensor:
     return x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
 
@@ -100,6 +145,7 @@ def conv2d(params, x: Tensor, stride: int = 2, dtype=None,
     takes the space-to-depth form for 5x5/2 on even inputs (same function,
     other accumulation order)."""
     dtype = dtype or x.dtype
+    params, x = _column(params, x, 1, 0)
     w = params["w"].to(dtype)
     k = w.shape[-1]
     if (impl == "s2d" and stride == 2 and k == 5
@@ -142,6 +188,7 @@ def conv3d_init(gen, in_ch: int, out_ch: int, k: int = 3, stddev=0.02):
 def conv3d(params, x: Tensor, stride: int = 2, dtype=None) -> Tensor:
     """NDHWC TF-SAME conv3d; the pads follow each input size."""
     dtype = dtype or x.dtype
+    params, x = _column(params, x, 1, 0)
     w = params["w"].to(dtype)
     xc = F.pad(_nchw(x.to(dtype)), _same_pads(x.shape[1:4], w.shape[-1],
                                               stride))
@@ -168,8 +215,16 @@ def deconv2d(params, x: Tensor, stride: int = 2, dtype=None,
     only adds, so it takes p = pl and the surplus trailing rows and columns
     are cropped (output_padding=1 with padding=2 would give (2, 3)).
     impl="subpixel" takes the dense-conv + depth-to-space form for 5x5/2.
+    Under tensor parallelism `x` is whole, and a weight that holds a block
+    of the in-channels makes the layer row-parallel.
     """
     dtype = dtype or x.dtype
+    if (collectives.model_group() is not None
+            and x.shape[-1] != params["w"].shape[0]):
+        part = deconv2d({"w": params["w"]}, collectives.split_model(x),
+                        stride, dtype, impl)
+        y, b = collectives.reduce_model(part), _bias(params, dtype)
+        return y if b is None else y + b
     w = params["w"].to(dtype)
     k = w.shape[-1]
     if impl == "subpixel" and stride == 2 and k == 5:
@@ -196,8 +251,9 @@ def _deconv2d_subpixel(params, x: Tensor, dtype) -> Tensor:
     kern = wp[:, :, idx[:, :, None, None], idx[None, None, :, :]]
     # (i, o, a, r, b, s) -> ((a, b, o), i, r, s)
     kern = kern.permute(2, 4, 1, 0, 3, 5).reshape(4 * out_ch, in_ch, 3, 3)
+    b = _bias(params, dtype)
     y = F.conv2d(F.pad(_nchw(x.to(dtype)), (1, 1, 1, 1)), kern,
-                 params["b"].to(dtype).repeat(4))
+                 None if b is None else b.repeat(4))
     bsz, m, n = x.shape[0], x.shape[1], x.shape[2]
     y = _nhwc(y).reshape(bsz, m, n, 2, 2, out_ch).permute(0, 1, 3, 2, 4, 5)
     return y.reshape(bsz, 2 * m, 2 * n, out_ch)
@@ -215,6 +271,7 @@ def linear_init(gen, in_dim: int, out_dim: int, stddev=0.02,
 
 def linear(params, x: Tensor, dtype=None) -> Tensor:
     dtype = dtype or x.dtype
+    params, x = _column(params, x, 0, 1)
     return torch.addmm(params["b"].to(dtype), x.to(dtype),
                        params["w"].to(dtype))
 
@@ -241,21 +298,34 @@ def batch_norm(params, state, x: Tensor, train: bool,
     batch_norm; torch's BatchNorm keeps an unbiased running variance and
     momentum = 1 - decay, hence this functional form). train=False uses the
     running moments and returns `state` unchanged. The new state is
-    detached: it is an output of the step, never differentiated.
+    detached: it is an output of the step, never differentiated. A
+    model-sharded x (fewer channels than `params`) takes its slice of the
+    vectors; the new state is whole.
     """
     axes = tuple(range(x.ndim - 1))
     xf = x.float()
+    scale, bias = params["scale"], params["bias"]
+    sharded = x.shape[-1] != scale.shape[0]
+    if sharded:
+        scale, bias = (collectives.split_model(scale),
+                       collectives.split_model(bias))
     if train:
         mean, var = collectives.moments(xf, axes)
+        batch = torch.stack([mean.detach(), var.detach()])
+        if sharded:
+            batch = collectives.model_whole(batch)
         new_state = {
-            "mean": momentum * state["mean"] + (1.0 - momentum) * mean.detach(),
-            "var": momentum * state["var"] + (1.0 - momentum) * var.detach(),
+            "mean": momentum * state["mean"] + (1.0 - momentum) * batch[0],
+            "var": momentum * state["var"] + (1.0 - momentum) * batch[1],
         }
     else:
         mean, var = state["mean"], state["var"]
+        if sharded:
+            mean, var = (collectives.model_block(mean),
+                         collectives.model_block(var))
         new_state = state
-    inv = torch.rsqrt(var + eps) * params["scale"]
-    y = (xf - mean) * inv + params["bias"]
+    inv = torch.rsqrt(var + eps) * scale
+    y = (xf - mean) * inv + bias
     return y.to(x.dtype), new_state
 
 

@@ -72,12 +72,14 @@ def make_sharded_sampler(sample_fn: Callable, mesh: Mesh, *,
 
 
 def state_dims(state_shardings) -> dict:
-    """{state path: shard dim} of the sharded leaves of a sharding tree
-    (parallel/fsdp.py fsdp_state_shardings); {} for None."""
+    """{state path: shard dim} of the leaves a sharding tree splits over
+    the data axis (parallel/fsdp.py fsdp_state_shardings); {} for None.
+    Leaves split over `model` (parallel/tp.py) are never gathered: the
+    layers work on their blocks."""
     if state_shardings is None:
         return {}
     return {k: s.dim for k, s in flatten(state_shardings).items()
-            if s.dim is not None}
+            if s.dim is not None and s.axis == DATA_AXIS}
 
 
 def make_sharded_step(step_fn: Callable, mesh: Mesh, *, static_args: dict,
@@ -91,8 +93,11 @@ def make_sharded_step(step_fn: Callable, mesh: Mesh, *, static_args: dict,
     batch_axis: which array axis is the batch: 0 for (B, ...) batches, 1
     for chunked (K, B, ...) stacks (train_chunk, train_chunk_ids' ids).
     state_shardings: a sharding tree of ts (parallel/fsdp.py
-    fsdp_state_shardings): ts then holds this rank's blocks of the sharded
-    leaves, and so does the returned state. Default: replicated.
+    fsdp_state_shardings, parallel/tp.py vid_state_tp_shardings): ts then
+    holds this rank's blocks of the sharded leaves, and so does the
+    returned state. Default: replicated. The step runs in every group of
+    the mesh (parallel/collectives.py use_mesh): on a model axis its
+    layers take their tensor-parallel forms.
     pass_knobs: the call takes a trailing Knobs (train/vid.py), forwarded
     as step_fn(..., knobs=knobs); equal on every rank."""
     group = mesh.data_group
@@ -105,7 +110,7 @@ def make_sharded_step(step_fn: Callable, mesh: Mesh, *, static_args: dict,
         kw = dict(static_args)
         if pass_knobs:
             kw["knobs"] = tail[1]
-        with collectives.use(group, dims):
+        with collectives.use_mesh(mesh, dims):
             return step_fn(ts, *local, tail[0], **kw)
 
     return call

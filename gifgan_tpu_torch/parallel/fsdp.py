@@ -8,8 +8,8 @@ package leaves the schedule to XLA; here it is explicit in the steps
 (train/vid.py, train/gan.py, through parallel/collectives.py):
 
 - each pass all-gathers the sharded params and state it reads;
-- the gradients of sharded leaves are reduce-scattered (mean), those of
-  replicated leaves all-reduced (mean);
+- the gradients of sharded leaves are reduce-scattered (summed), those
+  of replicated leaves all-reduced (summed; parallel/collectives.py);
 - Adam updates this rank's blocks of params, mu and nu.
 
 The shard dim follows the JAX rule: the largest dim that the axis size
@@ -20,8 +20,10 @@ the vid-D conv3d weight, (256, 256, 3, 3, 3) here and [3, 3, 3, 256, 256]
 in JAX, shards its in-channels (JAX dim 3, port dim 1) in both packages.
 
 Numerically a layout change: the losses match the replicated run up to
-float32 rounding (tests/test_torch_parallel.py). `gather_state` rebuilds
-the full state, which checkpoints and sample grids read.
+float32 rounding (tests/test_torch_parallel.py). `place_state` and its
+inverse `gather_state` serve any sharding tree (FSDP's, and parallel/tp.py's
+over the model axis); `gather_state` rebuilds the full state, which
+checkpoints and sample grids read.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import math
 from typing import Optional
 
 from gifgan_tpu_torch.core import interop
-from gifgan_tpu_torch.core.mesh import DATA_AXIS, Mesh, Sharding
+from gifgan_tpu_torch.core.mesh import AXIS_SETS, DATA_AXIS, Mesh, Sharding
 from gifgan_tpu_torch.core.tree import flatten, like, unflatten
 
 
@@ -40,16 +42,11 @@ def shard_dim(key: str, shape, n: int, min_size: int) -> Optional[int]:
     shape = tuple(shape)
     if not shape or math.prod(shape) < min_size:
         return None
-    perm = interop._perm(key, len(shape))
-    if perm is None:
-        jax_shape, to_port = shape, list(range(len(shape)))
-    else:
-        to_port = list(perm)
-        jax_shape = tuple(shape[to_port.index(i)] for i in range(len(shape)))
+    jax_shape, port_dim = interop.jax_shape(key, shape)
     for d in sorted(range(len(jax_shape)), key=lambda d: jax_shape[d],
                     reverse=True):
         if jax_shape[d] % n == 0:
-            return to_port.index(d)
+            return port_dim[d]
     return None
 
 
@@ -73,13 +70,21 @@ def _apply(ts, shardings, fn):
                                for k, v in flatten(ts).items()}))
 
 
+def place_state(ts, shardings):
+    """ts with the mesh's first rank's values and this rank's block of
+    each sharded leaf (the counterpart of device_put with the shardings:
+    FSDP's, or parallel/tp.py's over the model axis)."""
+    def put(v, s):
+        whole = s.mesh.group(AXIS_SETS[-1]).broadcast(v)
+        return whole if s.dim is None else s.mesh.group(s.axis).rows(
+            whole, s.dim).clone()
+
+    return _apply(ts, shardings, put)
+
+
 def place_fsdp(mesh: Mesh, ts, axis: str = DATA_AXIS, min_size: int = 2048):
-    """ts with rank 0's values and this rank's block of each sharded leaf
-    (the counterpart of device_put with fsdp_state_shardings)."""
-    return _apply(ts, fsdp_state_shardings(mesh, ts, axis, min_size),
-                  lambda v, s: s.place(v) if s.dim is None
-                  else mesh.data_group.rows(
-                      mesh.data_group.broadcast(v), s.dim).clone())
+    """ts placed per fsdp_state_shardings."""
+    return place_state(ts, fsdp_state_shardings(mesh, ts, axis, min_size))
 
 
 def place_and_shardings(mesh: Mesh, ts, min_size: int = 2048):
@@ -96,8 +101,9 @@ def place_and_shardings(mesh: Mesh, ts, min_size: int = 2048):
 
 def gather_state(ts, shardings):
     """The full train state on every rank: each sharded leaf all-gathered
-    (collective: every rank of the data axis calls it)."""
+    over its sharding's axis (FSDP's data axis, tensor parallelism's
+    model axis; collective: every rank of the mesh calls it)."""
     if shardings is None:
         return ts
     return _apply(ts, shardings, lambda v, s: v if s.dim is None
-                  else s.mesh.data_group.all_gather(v, s.dim))
+                  else s.mesh.group(s.axis).all_gather(v, s.dim))

@@ -17,15 +17,19 @@ card's machine has no imaging library; the cadence is checked after every
 chunk, the epoch-tail one too.
 
 On a mesh (`mesh=`, core/mesh.py; the JAX branches of loops.py:160-178 and
-:351-411, data axis only) every rank runs the loop: it visits the same id
-permutation, draws the same global z and noise, resumes from the same
-checkpoint, and trains its rows of each batch through
-parallel/dp.py make_sharded_step, K1 gathering its own ids on a device
-corpus. `fsdp=True` shards the state (parallel/fsdp.py), gathered whole
-for checkpoints and grids. Only rank 0 writes params.json, the metrics log,
-the grids and the checkpoints (core/checkpoint.py save_multihost). A mesh
-with a seq or model axis above 1 is refused: tensor and sequence
-parallelism are not ported.
+:351-411) every rank runs the loop: it visits the same id permutation,
+draws the same global z and noise, resumes from the same checkpoint, and
+trains its rows of each batch through parallel/dp.py make_sharded_step,
+K1 gathering its own ids on a device corpus. `fsdp=True` shards the state
+(parallel/fsdp.py). The video GAN's mesh is also its parallelism request,
+as in the JAX package: a model axis above 1 selects the full
+tensor-parallel layout (parallel/tp.py: the weights and their Adam slots
+split over `model`; refused with fsdp), a seq axis above 1 the
+sequence-parallel step (parallel/sp.py: each clip's frames over `seq`,
+K1 gathering each rank's block of its clips' frames). Sharded states are
+gathered whole for checkpoints and grids, and a resume places the
+restored state again. Only rank 0 writes params.json, the metrics log,
+the grids and the checkpoints (core/checkpoint.py save_multihost).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from gifgan_tpu_torch.core import checkpoint as ckpt
 from gifgan_tpu_torch.core.config import (DCGANConfig, RecurrentImageConfig,
                                           TrainConfig, VidGANConfig,
                                           save_config)
-from gifgan_tpu_torch.core.mesh import MODEL_AXIS, SEQ_AXIS
+from gifgan_tpu_torch.core.mesh import AXIS_SETS, MODEL_AXIS, SEQ_AXIS
 from gifgan_tpu_torch.core.metrics import MetricsLogger
 from gifgan_tpu_torch.core.rng import PRNGSequence, uniform_z
 from gifgan_tpu_torch.data.device import DeviceCorpus
@@ -52,7 +56,9 @@ from gifgan_tpu_torch.data.video import write_gif
 from gifgan_tpu_torch.ops.image import (denorm_u8, inverse_transform,
                                         merge_grid, to_uint8, write_png)
 from gifgan_tpu_torch.parallel import fsdp as fsdp_lib
+from gifgan_tpu_torch.parallel import tp
 from gifgan_tpu_torch.parallel.dp import make_sharded_step, shard_train_state
+from gifgan_tpu_torch.parallel.sp import make_sp_step
 from gifgan_tpu_torch.train import gan
 from gifgan_tpu_torch.train import recurrent as rtrain
 from gifgan_tpu_torch.train import vid as vid_train
@@ -190,12 +196,8 @@ class _Loop:
         if fsdp and mesh is None:
             raise ValueError("fsdp=True requires a device mesh "
                              "(--data-parallel 0 or N, not 1)")
-        if mesh is not None and (mesh.shape[SEQ_AXIS] > 1
-                                 or mesh.shape[MODEL_AXIS] > 1):
-            raise ValueError(
-                f"the port trains on a mesh's data axis only, got {mesh}: "
-                "tensor and sequence parallelism (--tensor-parallel, "
-                "--seq-parallel) are ROADMAP item 6b")
+        if mesh is not None:
+            mesh.group(AXIS_SETS[-1])     # its ranks' process group, or raise
         self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
         self.primary = (mesh is None
                         or not torch.distributed.is_initialized()
@@ -220,20 +222,36 @@ class _Loop:
         self.fsdp, self.fsdp_min_size = fsdp, fsdp_min_size
         self.shardings = None
 
-    def place(self) -> None:
+    def place(self, tensor_parallel: bool = False) -> None:
         """Lay the (restored or grafted) state out on the mesh: replicated,
-        or FSDP's blocks."""
-        if self.mesh is not None and self.fsdp:
+        FSDP's blocks, or with tensor_parallel on a model axis the full
+        tensor-parallel layout of a VidTrainState."""
+        if self.mesh is None:
+            return
+        if self.fsdp:
             self.ts, self.shardings = fsdp_lib.place_and_shardings(
                 self.mesh, self.ts, min_size=self.fsdp_min_size)
-        elif self.mesh is not None:
+        elif tensor_parallel and self.mesh.shape[MODEL_AXIS] > 1:
+            self.shardings = tp.vid_state_tp_shardings(self.mesh, self.ts,
+                                                       full=True)
+            self.ts = fsdp_lib.place_state(self.ts, self.shardings)
+        else:
             self.ts = shard_train_state(self.mesh, self.ts)
 
     def stepper(self, fn: Callable, batch_axis: int,
-                pass_knobs: bool = False, **static) -> Callable:
+                pass_knobs: bool = False, folded: Optional[bool] = None,
+                **static) -> Callable:
         """fn(ts, *arrays, gen, [knobs=], **static) as call(ts, *arrays,
         gen[, knobs]) on the global arrays: sharded over the mesh when
-        there is one (batch_axis: the arrays' batch axis)."""
+        there is one (batch_axis: the arrays' batch axis). `folded` marks
+        a video step (frames, or clip ids with folded=False), which a seq
+        axis above 1 runs sequence-parallel."""
+        if self.mesh is not None and folded is not None \
+                and self.mesh.shape[SEQ_AXIS] > 1:
+            return make_sp_step(fn, self.mesh, static_args=static,
+                                batch_axis=batch_axis,
+                                state_shardings=self.shardings,
+                                pass_knobs=pass_knobs, folded=folded)
         if self.mesh is not None:
             return make_sharded_step(fn, self.mesh, static_args=static,
                                      batch_axis=batch_axis,
@@ -244,8 +262,8 @@ class _Loop:
         return lambda ts, *a: fn(ts, *a, **static)
 
     def full_state(self):
-        """The whole train state (FSDP's blocks gathered: every rank calls
-        this together)."""
+        """The whole train state (FSDP's or tensor parallelism's blocks
+        gathered: every rank calls this together)."""
         return fsdp_lib.gather_state(self.ts, self.shardings)
 
     def run(self, batches_of_epoch: Callable[[int], Iterator], z_dim: int,
@@ -381,15 +399,20 @@ def train_vid_dcgan(clips_iter: Optional[Callable[[], Iterator]],
     D-lr knobs from each chunk's d_loss; its events go to the metrics log,
     from which a resumed run restores the knob levels. mesh: train
     data-parallel on its data axis, each rank's clips gathered by K1 from
-    its own ids; fsdp: shard the state over it (leaves of at least
-    fsdp_min_size elements)."""
+    its own ids, tensor-parallel on a model axis above 1 and
+    sequence-parallel on a seq axis above 1 (the module docstring); fsdp:
+    shard the state over the data axis (leaves of at least fsdp_min_size
+    elements), not with a model axis."""
+    if fsdp and mesh is not None and mesh.shape[MODEL_AXIS] > 1:
+        raise ValueError("--fsdp and --tensor-parallel shard the train "
+                         "state along different mesh axes; pick one")
     loop = _Loop(cfg, tcfg, vid_train.init_train_state, resume, device,
                  mesh, fsdp, fsdp_min_size)
     if not loop.resumed and image_gan_ckpt:
         loop.ts = vid_train.load_image_gan(loop.ts, image_gan_ckpt)
         if loop.primary:
             print(f"loaded frozen image GAN from {image_gan_ckpt}")
-    loop.place()
+    loop.place(tensor_parallel=True)
     img = cfg.image_gan
     corpus = None
     if clips_u8 is not None:
@@ -398,12 +421,13 @@ def train_vid_dcgan(clips_iter: Optional[Callable[[], Iterator]],
                          "clips_u8 (N, vid_length, s, s, c)",
                          tcfg.batch_size, loop.device, mesh=mesh)
         chunk_fn = loop.stepper(vid_train.train_chunk_ids, 1,
-                                pass_knobs=auto_intervene,
+                                pass_knobs=auto_intervene, folded=False,
                                 corpus_data=corpus.data, cfg=cfg, tcfg=tcfg,
-                                sample_fn=corpus.sample_fn)
+                                sample_fn=corpus.fold_sample_fn)
     else:
         chunk_fn = loop.stepper(vid_train.train_chunk, 1,
-                                pass_knobs=auto_intervene, cfg=cfg, tcfg=tcfg)
+                                pass_knobs=auto_intervene, folded=True,
+                                cfg=cfg, tcfg=tcfg)
 
     controller, knobs = None, None
     if auto_intervene:

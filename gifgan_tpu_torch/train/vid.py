@@ -14,13 +14,20 @@ Semantics, as in the JAX package:
 - Loss: sigmoid CE, plus first_frame_loss_scalar * first-frame MSE for G.
 
 `lax.scan` becomes a Python loop (train_chunk, train_chunk_ids); autograd
-replaces jax.value_and_grad. On a mesh (parallel/dp.py make_sharded_step)
-the steps run on this rank's rows: the gradients are reduced over the
-ranks between each `_x_grads` and its optimizer update
-(parallel/collectives.py reduce_gradients), and under FSDP the state
-holds this rank's blocks, gathered where a pass reads them. Noise draws come from an explicit
-torch.Generator on the tensors' device; torch's generator cannot match
-threefry, so the parity tests against the JAX package run at noise 0.
+replaces jax.value_and_grad. On a mesh (parallel/dp.py make_sharded_step,
+parallel/sp.py make_sp_step) the steps run on this rank's rows: the
+frames' over the (data, seq) composite, the clips' (z, the vid-D's
+logits and its loss) over data. The gradients are summed over the ranks
+between each `_x_grads` and its optimizer update
+(parallel/collectives.py reduce_gradients): over (data, seq) for the
+nets that run on frames, over data alone for the vid-D, which every seq
+rank runs alike. Under FSDP the state holds this rank's blocks, gathered
+where a pass reads them; under tensor parallelism (parallel/tp.py) it
+holds this rank's blocks of the weights and their Adam slots, which the
+layers use as they are (ops/nn.py). Noise draws come from an explicit
+torch.Generator on the tensors' device, at the global shape, each rank
+keeping its rows; torch's generator cannot match threefry, so the parity
+tests against the JAX package run at noise 0.
 """
 
 from __future__ import annotations
@@ -165,8 +172,11 @@ def _d_grads(ts: VidTrainState, frames: Tensor, z: Tensor, gen,
             real_acts, cfg, train=True)
         logits_fake, ds2 = vid_dcgan.vid_discriminator(
             params["vid_discriminator"], ds1, fake_acts, cfg, train=True)
-        loss_real = nn.sigmoid_ce(logits_real, torch.ones_like(logits_real))
-        loss_fake = nn.sigmoid_ce(logits_fake, torch.zeros_like(logits_fake))
+        with collectives.per_clip():
+            loss_real = nn.sigmoid_ce(logits_real,
+                                      torch.ones_like(logits_real))
+            loss_fake = nn.sigmoid_ce(logits_fake,
+                                      torch.zeros_like(logits_fake))
         d_loss = loss_real + loss_fake
         grads = _grads(d_loss, keys, leaves)
     metrics = {"d_loss": d_loss, "d_loss_real": loss_real,
@@ -179,7 +189,7 @@ def _d_step(ts: VidTrainState, frames: Tensor, z: Tensor, gen,
             cfg: VidGANConfig, tcfg: TrainConfig, opt: Adam,
             knobs: Optional[Knobs] = None) -> Tuple[VidTrainState, Dict]:
     grads, metrics, vid_ds = _d_grads(ts, frames, z, gen, cfg, tcfg, knobs)
-    grads = collectives.reduce_gradients(grads, "opt_d")
+    grads = collectives.reduce_gradients(grads, "opt_d", per_clip=("vid",))
     updates, opt_d = opt.update(grads, ts.opt_d)
     if knobs is not None:
         updates = scale_updates(updates, knobs.d_lr_scale)
@@ -212,7 +222,9 @@ def _g_grads(ts: VidTrainState, z: Tensor, gen, cfg: VidGANConfig,
         logits_fake, _ = vid_dcgan.vid_discriminator(
             params["vid_discriminator"], state["vid_discriminator"],
             fake_acts, cfg, train=True)
-        realism = nn.sigmoid_ce(logits_fake, torch.ones_like(logits_fake))
+        with collectives.per_clip():
+            realism = nn.sigmoid_ce(logits_fake,
+                                    torch.ones_like(logits_fake))
         ff = (cfg.first_frame_loss_scalar
               * vid_dcgan.first_frame_loss(g_out, z, cfg))
         g_loss = realism + ff

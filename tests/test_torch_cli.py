@@ -797,27 +797,45 @@ def test_serve_and_ckpt_parsers_equal_the_jax_cli(command, monkeypatch):
     assert got == want
 
 
-# the JAX train-vid's tensor- and sequence-parallel flags: not ported
-NOT_PORTED_FLAGS = {"tensor_parallel", "seq_parallel"}
-
-
 @pytest.mark.parametrize("command", ["train-dcgan", "train-vid",
                                      "train-recurrent", "sample-wall"])
 def test_train_and_sample_wall_parsers_equal_the_jax_cli(command,
                                                          monkeypatch):
-    """The training commands and sample-wall take the JAX command's flags,
-    the mesh flags (--data-parallel, --fsdp, --fsdp-min-size) with their
-    defaults included, plus --device; all but train-vid's
-    --tensor-parallel and --seq-parallel."""
+    """The training commands and sample-wall take exactly the JAX command's
+    flags, the mesh flags (--data-parallel, --fsdp, --fsdp-min-size, and
+    train-vid's --tensor-parallel and --seq-parallel) with their defaults
+    included, plus --device."""
     want = _flags(_jax_subparsers(monkeypatch)[command])
     got = _flags(_choices(cli.build_parser())[command])
     assert got.pop("device") == (("--device",), "_StoreAction", None,
                                  None, None, False, None, None)
-    assert set(want) - set(got) == (NOT_PORTED_FLAGS if command == "train-vid"
-                                    else set())
-    for dest in NOT_PORTED_FLAGS:
-        want.pop(dest, None)
+    if command == "train-vid":
+        assert {"tensor_parallel", "seq_parallel"} <= set(got)
     assert got == want
+
+
+def test_train_vid_refuses_fsdp_with_tensor_parallel(tmp_path, monkeypatch):
+    """--fsdp --tensor-parallel 2 is refused with the JAX loop's message:
+    the JAX CLI on the conftest's 8 virtual devices (a 4 x 2 mesh), the
+    port's on a mesh of 2 ranks of which this process is the first (the
+    refusal comes before any collective), and the port writes nothing."""
+    from gifgan_tpu_torch.core.mesh import make_mesh
+
+    argv = ["train-vid", "--fsdp", "--tensor-parallel", "2",
+            "--output-size", "32", "--z-dim", "16", "--gf-dim", "8",
+            "--df-dim", "8", "--vid-z-dim", "20", "--vid-length", "4",
+            "--dataset-size", "8", "--batch-size", "4"]
+    with pytest.raises(ValueError) as want:
+        _jax_main(argv + ["--run-dir", str(tmp_path / "jax")])
+    monkeypatch.setattr(cli, "_mesh_arg", lambda args: make_mesh(
+        [0, 1], data_parallel=1, model_parallel=args.tensor_parallel))
+    with pytest.raises(ValueError) as got:
+        cli.main(argv + ["--run-dir", str(tmp_path / "port"), "--device",
+                         "cpu"])
+    assert str(got.value) == str(want.value) == (
+        "--fsdp and --tensor-parallel shard the train state along "
+        "different mesh axes; pick one")
+    assert not (tmp_path / "port").exists()
 
 
 def test_the_port_has_26_of_the_27_commands(monkeypatch):

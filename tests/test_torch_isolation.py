@@ -33,7 +33,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 81, out.stdout
+    assert int(n) >= 83, out.stdout
     assert bad == "[]", bad
 
 

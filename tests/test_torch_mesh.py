@@ -217,8 +217,10 @@ def test_save_multihost_writes_on_process_zero_between_barriers(tmp_path):
 
 
 def test_train_loops_refuse_what_the_port_does_not_shard(tmp_path):
-    """fsdp without a mesh raises the JAX loops' error; a mesh with a model
-    or seq axis above 1 is refused, naming ROADMAP item 6b."""
+    """fsdp without a mesh raises the JAX loops' error, and fsdp on a mesh
+    with a model axis above 1 the JAX train-vid's (the two shard the state
+    along different axes); a mesh with a model or seq axis above 1 needs
+    the process group of its ranks. Nothing is written."""
     from gifgan_tpu_torch.train import loops
 
     cfg = tconfig.VidGANConfig(image_gan=tconfig.DCGANConfig(**_IMG),
@@ -226,8 +228,11 @@ def test_train_loops_refuse_what_the_port_does_not_shard(tmp_path):
     tcfg = tconfig.TrainConfig(batch_size=4, run_dir=str(tmp_path / "r"))
     with pytest.raises(ValueError, match="fsdp=True requires a device mesh"):
         loops.train_vid_dcgan(None, cfg, tcfg, fsdp=True, device="cpu")
+    with pytest.raises(ValueError, match="--fsdp and --tensor-parallel"):
+        loops.train_vid_dcgan(None, cfg, tcfg, fsdp=True, device="cpu",
+                              mesh=make_mesh([0, 1], model_parallel=2))
     for kw in ({"model_parallel": 2}, {"seq_parallel": 2}):
-        with pytest.raises(ValueError, match="ROADMAP item 6b"):
+        with pytest.raises(RuntimeError, match="initialized process group"):
             loops.train_vid_dcgan(None, cfg, tcfg, device="cpu",
                                   mesh=make_mesh([0, 1], **kw))
     assert not (tmp_path / "r").exists()

@@ -73,23 +73,45 @@ def test_sync_walks_nested_trees_in_the_jax_order():
         tprofile.sync(empty)
 
 
+# The capture of the test below, run in a process of its own: a capture
+# records the ops of every thread of its process, and a test worker may
+# hold threads that earlier tests started. One intra-op thread, and a
+# product ~1000x the tanh's work, so `dot` leads on a loaded host too.
+_CAPTURE = """
+import sys
+import torch
+from gifgan_tpu_torch.core import profile as tprofile
+
+torch.set_num_threads(1)
+g = torch.Generator().manual_seed(0)
+x = torch.rand((256, 1024), generator=g)
+w = torch.rand((1024, 1024), generator=g) / 1024
+
+
+def f(x):
+    for _ in range(3):
+        x = torch.tanh(x @ w)
+    return x
+
+
+f(x)
+with tprofile.trace(sys.argv[1]):
+    f(x)
+"""
+
+
 def test_summarize_trace_of_a_real_cpu_capture(tmp_path):
     """The counterpart of tests/test_profile_ckpt_tools.py's: a CPU trace
     of tanh(x @ w) three times; dot takes most of the time and a container
     op (aten::matmul) is not counted again through the op it calls
     (aten::mm)."""
-    g = torch.Generator().manual_seed(0)
-    x = torch.rand((128, 256), generator=g)
-    w = torch.rand((256, 256), generator=g)
+    import subprocess
+    import sys
 
-    def f(x):
-        for _ in range(3):
-            x = torch.tanh(x @ w)
-        return x
-
-    f(x)
-    with tprofile.trace(str(tmp_path)):
-        f(x)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", _CAPTURE, str(tmp_path)],
+                   check=True, timeout=120,
+                   env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1"))
     files = [n for _, _, ns in os.walk(tmp_path) for n in ns]
     assert len(files) == 1 and files[0].endswith(".pt.trace.json.gz")
 
