@@ -2710,7 +2710,7 @@ def phase_bench(smi):
           f"bench's metric and unit are the JAX bench's: {res}")
     check(math.isfinite(res["value"]) and res["value"] > 0,
           f"bench's value finite and above 0: {res}")
-    say("bench", steps_per_sec=res["value"], vs_baseline=res["vs_baseline"],
+    say("bench", steps_per_sec=res["value"],
         compile_cache=res["compile_cache"], nvidia_smi=repr(smi),
         seconds=f"{time.perf_counter() - t:.1f}")
 

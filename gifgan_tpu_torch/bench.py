@@ -11,11 +11,7 @@ activations and K = 80 steps a `train/vid.py train_chunk` call (a Python
 loop of eager steps here). The frames and z are made on the card from a
 seeded torch.Generator: the 4 GB frames buffer never exists on the host.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline",
-"compile_cache"}. vs_baseline divides by BASELINE.json's
-published.cpu_reference_steps_per_sec, which the JAX package's
-`bench.py --cpu-reference` measured on one CPU core through XLA:CPU: a
-number of the JAX package on a CPU, not of the port or of any card.
+Prints ONE JSON line: {"metric", "value", "unit", "compile_cache"}.
 `compile_cache` is "none": eager PyTorch compiles no program.
 
 Not ported, by design: the JAX bench's TPU compile-relay and
@@ -37,9 +33,6 @@ import time
 from dataclasses import replace
 
 METRIC = "vid_dcgan_train_steps_per_sec_b64_64x64x16"
-BASELINE_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "BASELINE.json")
 
 
 def _flagship(dtype="bfloat16"):
@@ -107,19 +100,10 @@ def run_cpu_reference(steps: int = 3):
 
 
 def _emit(value):
-    baseline = None
-    try:
-        with open(BASELINE_PATH) as f:
-            baseline = json.load(f).get("published", {}).get(
-                "cpu_reference_steps_per_sec")
-    except (OSError, ValueError):
-        pass
-    vs = (value / baseline) if baseline else None
     print(json.dumps({
         "metric": METRIC,
         "value": round(value, 4),
         "unit": "steps/sec",
-        "vs_baseline": round(vs, 3) if vs else None,
         "compile_cache": "none",
     }), flush=True)
 

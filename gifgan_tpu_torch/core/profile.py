@@ -7,17 +7,23 @@
     of one scalar, so the host clock covers the device's work,
   - `estimate_epoch_hours`: the reference's time_script.py extrapolation,
   - `summarize_trace(...)`: device time by operation and category from the
-    newest capture, with the JAX version's keys.
+    newest capture, with the JAX version's keys,
+  - `span(...)` and `span_summary()`: named spans inside the program,
+    recorded only while a torch.profiler session records, each timed on
+    the device's clock and shown in the capture as a `user_annotation`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # The port's hand-written kernels, each listed under its own name, by the
 # kernel symbols of gifgan_tpu_torch/csrc/ its trace rows carry.
@@ -60,14 +66,15 @@ def trace(log_dir: str):
     """Capture a trace: `with profile.trace("runs/x/trace") as p: step(...)`.
     View with TensorBoard; `p` is the torch.profiler.profile object (its
     `key_averages()` reads the same capture). The device is synchronized
-    before the capture stops, so it holds every kernel the block launched."""
-    import torch
+    before the capture stops, so it holds every kernel the block launched.
+    Its spans (`span`) start a new list."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if cuda else [])
+    _SPANS.live = False
     with profile(activities=activities, on_trace_ready=
                  tensorboard_trace_handler(log_dir, use_gzip=True)) as p:
         try:
@@ -90,8 +97,6 @@ def _leaves(tree):
 def sync(tree) -> None:
     """Wait for the device by fetching one scalar of the first tensor leaf
     (nothing to do on an empty tree)."""
-    import torch
-
     leaves = [x for x in _leaves(tree) if isinstance(x, torch.Tensor)]
     if leaves and leaves[0].numel():
         leaves[0].reshape(-1)[:1].cpu()
@@ -218,3 +223,218 @@ def summarize_trace(log_dir: str, top: int = 25) -> Dict:
                 for n, r in ops],
             "by_category": dict(sorted(by_cat.items(),
                                        key=lambda kv: -kv[1]))}
+
+
+# ---------------------------------------------------------------------------
+# spans inside the program
+# ---------------------------------------------------------------------------
+
+def _instant(cuda: bool):
+    """Now, on the clock of the span's work: a CUDA event recorded on the
+    current stream, else the host's perf_counter_ns."""
+    if not cuda:
+        return time.perf_counter_ns()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def _seconds(start, end) -> float:
+    if isinstance(start, int):
+        return (end - start) * 1e-9
+    return start.elapsed_time(end) * 1e-3
+
+
+class _Record:
+    """One span: its name, the record it ran inside (None for a root),
+    the ordinal of its root in the session, and its [start, end] on the
+    host (perf_counter_ns) and on the device (`_instant`)."""
+
+    __slots__ = ("name", "parent", "step", "cuda", "host", "device",
+                 "bounds")
+
+    def __init__(self, name: str, parent: Optional["_Record"], step: int,
+                 cuda: bool):
+        self.name, self.parent, self.step, self.cuda = (name, parent, step,
+                                                        cuda)
+        self.host, self.device = [0, 0], [None, None]
+        # (net, device instant, host ns, its range) of each net whose
+        # backward began inside this span, in the order they began
+        self.bounds: List[tuple] = []
+
+    def boundary(self, net: str) -> None:
+        """A backward hook of `net` fired inside this span: the first of
+        each net ends the range before it and opens `<net>.bwd`."""
+        if any(b[0] == net for b in self.bounds):
+            return
+        if self.bounds:
+            self.bounds[-1][3].__exit__(None, None, None)
+        rng = torch.profiler.record_function(f"{net}.bwd")
+        rng.__enter__()
+        self.bounds.append((net, _instant(self.cuda), time.perf_counter_ns(),
+                            rng))
+
+    def tiles(self) -> List["_Record"]:
+        """The `<net>.bwd` records that tile this span from its first
+        boundary to its end."""
+        out = []
+        for i, (net, dev, host, _) in enumerate(self.bounds):
+            nxt = self.bounds[i + 1] if i + 1 < len(self.bounds) else None
+            tile = _Record(f"{net}.bwd", self, self.step, self.cuda)
+            tile.device = [dev, nxt[1] if nxt else self.device[1]]
+            tile.host = [host, nxt[2] if nxt else self.host[1]]
+            out.append(tile)
+        return out
+
+
+class _Open(threading.local):
+    """A thread's open spans, innermost last."""
+
+    def __init__(self):
+        self.stack: List[_Record] = []
+
+
+class _Spans:
+    """The records of the newest profiler session in which a span ran,
+    and each thread's open spans. The profiler is one per process, so
+    this is too (`_SPANS`)."""
+
+    def __init__(self):
+        self.records: List[_Record] = []
+        self.steps = 0
+        self.live = False       # a span has run in the session now recording
+        self.open = _Open()
+
+    def begin(self) -> None:
+        """The first span of a session starts a new list."""
+        if not self.live:
+            self.live, self.records, self.steps = True, [], 0
+
+
+_SPANS = _Spans()
+
+
+class _Off:
+    """The span when no profiler records: nothing at all."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def mark(self, tensor) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Span:
+    """A span while a profiler session records (see `span`)."""
+
+    def __init__(self, name: str, device):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        _SPANS.begin()
+        self.stack = _SPANS.open.stack
+        parent = self.stack[-1] if self.stack else None
+        if parent is None:
+            _SPANS.steps += 1
+            cuda = (self.device is not None
+                    and torch.device(self.device).type == "cuda")
+            rec = _Record(self.name, None, _SPANS.steps, cuda)
+        else:
+            rec = _Record(self.name, parent, parent.step, parent.cuda)
+        self.rec = rec
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        rec.host[0] = time.perf_counter_ns()
+        rec.device[0] = _instant(rec.cuda)
+        self.stack.append(rec)
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec.device[1] = _instant(rec.cuda)
+        rec.host[1] = time.perf_counter_ns()
+        self.stack.pop()
+        if rec.bounds:
+            rec.bounds[-1][3].__exit__(None, None, None)
+        self.range.__exit__(*exc)
+        _SPANS.records.append(rec)
+        _SPANS.records.extend(rec.tiles())
+        return False
+
+    def mark(self, tensor: torch.Tensor) -> None:
+        """`tensor` is this span's net's output: where its gradient
+        arrives, that net's backward begins. A hook on it (only if it
+        requires grad) marks that instant in the span open on this
+        thread when it fires, and returns None: no gradient changes."""
+        if not tensor.requires_grad:
+            return
+        stack, net = self.stack, self.name
+
+        def hook(grad):
+            if stack:
+                stack[-1].boundary(net)
+
+        tensor.register_hook(hook)
+
+
+def span(name: str, device=None):
+    """`with profile.span("vid.img_g") as s: ...`: a named span of the
+    program, recorded only while a torch.profiler session records.
+
+    Off (no profiler), one read of torch's profiler flag and a shared
+    no-op: no record_function, no event, no hook, no allocation, no
+    synchronisation. On, a `record_function(name)` range (a
+    `user_annotation` in the capture), an instant at entry and at exit
+    on the host and on the device (CUDA events on the current stream
+    when `device`, or the enclosing span's, is a CUDA device; else the
+    host clock), and a record in memory. A span with no span open on its
+    thread is a root: the session counts its roots as its steps.
+
+    `s.mark(t)` in a net's forward span makes the arrival of t's
+    gradient a boundary: the first boundary of each net inside a later
+    span (the backward pass) opens `<net>.bwd` there, which runs to the
+    next net's boundary or to that span's end. What runs before the
+    first boundary is that span's self time."""
+    if not _autograd_profiler._is_profiler_enabled:
+        if _SPANS.live:
+            _SPANS.live = False     # the session that recorded has ended
+        return _OFF
+    return _Span(name, device)
+
+
+def span_summary() -> Dict:
+    """The spans of the newest profiler session in which any ran:
+    {"steps": its roots, "spans": {name: {"count", "device_s", "host_s",
+    "self_device_s"}}}, each time summed over the name's records;
+    self_device_s leaves out the device time of each record's children.
+    Synchronises the device once. A session that `trace` opens starts a
+    new list; one opened elsewhere starts one if a span or this summary
+    has seen the profiler off since the last session's spans."""
+    records = list(_SPANS.records)
+    if not _autograd_profiler._is_profiler_enabled:
+        _SPANS.live = False
+    if any(r.cuda for r in records):
+        torch.cuda.synchronize()
+    device = {id(r): _seconds(*r.device) for r in records}
+    children: Dict[int, float] = {}
+    for r in records:
+        if r.parent is not None:
+            key = id(r.parent)
+            children[key] = children.get(key, 0.0) + device[id(r)]
+    spans: Dict[str, Dict] = {}
+    for r in records:
+        s = spans.setdefault(r.name, {"count": 0, "device_s": 0.0,
+                                      "host_s": 0.0, "self_device_s": 0.0})
+        s["count"] += 1
+        s["device_s"] += device[id(r)]
+        s["host_s"] += (r.host[1] - r.host[0]) * 1e-9
+        s["self_device_s"] += device[id(r)] - children.get(id(r), 0.0)
+    return {"steps": _SPANS.steps, "spans": spans}

@@ -28,6 +28,13 @@ layers use as they are (ops/nn.py). Noise draws come from an explicit
 torch.Generator on the tensors' device, at the global shape, each rank
 keeping its rows; torch's generator cannot match threefry, so the parity
 tests against the JAX package run at noise 0.
+
+Spans (core/profile.py span), recorded only while a torch.profiler
+session records: `vid.step` a step; `vid.vid_g`, `vid.img_g`,
+`vid.img_d_tap` and `vid.vid_d` each net's forward call; `vid.loss`,
+`vid.backward` and `vid.optimizer` an update's loss terms, `_grads` and
+Adam; inside `vid.backward`, `<net>.bwd` from the arrival of the
+gradient of each net's output to the next net's.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 from gifgan_tpu_torch import resolve_device
 from gifgan_tpu_torch.core import checkpoint as ckpt
 from gifgan_tpu_torch.core import interop
+from gifgan_tpu_torch.core import profile
 from gifgan_tpu_torch.core.config import TrainConfig, VidGANConfig, load_config
 from gifgan_tpu_torch.core.rng import PRNGSequence, uniform_z
 from gifgan_tpu_torch.models import dcgan, vid_dcgan
@@ -126,15 +134,23 @@ def _fake_activations(params, state, z, cfg: VidGANConfig, gen,
     """vid-G(train) -> img-G(inference) -> noise -> img-D(inference) h2 tap
     -> noise. Returns (acts, g_out, vid-G state, pre-noise act std)."""
     img_std, act_std = _noise_stds(cfg, knobs)
-    g_out, vid_gs = vid_dcgan.vid_generator(
-        params["vid_generator"], state["vid_generator"], z, cfg, train=True)
-    frames, _ = dcgan.generator(params["img_generator"],
-                                state["img_generator"], g_out,
-                                cfg.image_gan, train=False)
+    with profile.span("vid.vid_g") as s:
+        g_out, vid_gs = vid_dcgan.vid_generator(
+            params["vid_generator"], state["vid_generator"], z, cfg,
+            train=True)
+        s.mark(g_out)
+    with profile.span("vid.img_g") as s:
+        frames, _ = dcgan.generator(params["img_generator"],
+                                    state["img_generator"], g_out,
+                                    cfg.image_gan, train=False)
+        s.mark(frames)
     frames = nn.add_noise(gen, frames, img_std)
-    acts, _ = dcgan.discriminator_tap(params["img_discriminator"],
-                                      state["img_discriminator"], frames,
-                                      cfg.image_gan, train=False)
+    with profile.span("vid.img_d_tap") as s:
+        acts, _ = dcgan.discriminator_tap(params["img_discriminator"],
+                                          state["img_discriminator"],
+                                          frames, cfg.image_gan,
+                                          train=False)
+        s.mark(acts)
     pre_noise_std = nn.get_std(acts.reshape(acts.shape[0], -1))
     return nn.add_noise(gen, acts, act_std), g_out, vid_gs, pre_noise_std
 
@@ -143,9 +159,11 @@ def _real_activations(params, state, frames, cfg: VidGANConfig, gen,
                       knobs=None):
     img_std, act_std = _noise_stds(cfg, knobs)
     noisy = nn.add_noise(gen, frames, img_std)
-    acts, _ = dcgan.discriminator_tap(params["img_discriminator"],
-                                      state["img_discriminator"], noisy,
-                                      cfg.image_gan, train=False)
+    with profile.span("vid.img_d_tap") as s:
+        acts, _ = dcgan.discriminator_tap(params["img_discriminator"],
+                                          state["img_discriminator"], noisy,
+                                          cfg.image_gan, train=False)
+        s.mark(acts)
     pre_noise_std = nn.get_std(acts.reshape(acts.shape[0], -1))
     return nn.add_noise(gen, acts, act_std), pre_noise_std
 
@@ -167,18 +185,25 @@ def _d_grads(ts: VidTrainState, frames: Tensor, z: Tensor, gen,
                                                 cfg, gen, knobs)
         fake_acts, _, _, fake_std = _fake_activations(params, state, z,
                                                       cfg, gen, knobs)
-        logits_real, ds1 = vid_dcgan.vid_discriminator(
-            params["vid_discriminator"], state["vid_discriminator"],
-            real_acts, cfg, train=True)
-        logits_fake, ds2 = vid_dcgan.vid_discriminator(
-            params["vid_discriminator"], ds1, fake_acts, cfg, train=True)
-        with collectives.per_clip():
-            loss_real = nn.sigmoid_ce(logits_real,
-                                      torch.ones_like(logits_real))
-            loss_fake = nn.sigmoid_ce(logits_fake,
-                                      torch.zeros_like(logits_fake))
-        d_loss = loss_real + loss_fake
-        grads = _grads(d_loss, keys, leaves)
+        with profile.span("vid.vid_d") as s:
+            logits_real, ds1 = vid_dcgan.vid_discriminator(
+                params["vid_discriminator"], state["vid_discriminator"],
+                real_acts, cfg, train=True)
+            s.mark(logits_real)
+        with profile.span("vid.vid_d") as s:
+            logits_fake, ds2 = vid_dcgan.vid_discriminator(
+                params["vid_discriminator"], ds1, fake_acts, cfg,
+                train=True)
+            s.mark(logits_fake)
+        with profile.span("vid.loss"):
+            with collectives.per_clip():
+                loss_real = nn.sigmoid_ce(logits_real,
+                                          torch.ones_like(logits_real))
+                loss_fake = nn.sigmoid_ce(logits_fake,
+                                          torch.zeros_like(logits_fake))
+            d_loss = loss_real + loss_fake
+        with profile.span("vid.backward"):
+            grads = _grads(d_loss, keys, leaves)
     metrics = {"d_loss": d_loss, "d_loss_real": loss_real,
                "d_loss_fake": loss_fake, "real_activation_std": real_std,
                "fake_activation_std": fake_std}
@@ -190,10 +215,11 @@ def _d_step(ts: VidTrainState, frames: Tensor, z: Tensor, gen,
             knobs: Optional[Knobs] = None) -> Tuple[VidTrainState, Dict]:
     grads, metrics, vid_ds = _d_grads(ts, frames, z, gen, cfg, tcfg, knobs)
     grads = collectives.reduce_gradients(grads, "opt_d", per_clip=("vid",))
-    updates, opt_d = opt.update(grads, ts.opt_d)
-    if knobs is not None:
-        updates = scale_updates(updates, knobs.d_lr_scale)
-    new = apply_updates(_d_trainable(ts.params, tcfg), updates)
+    with profile.span("vid.optimizer"):
+        updates, opt_d = opt.update(grads, ts.opt_d)
+        if knobs is not None:
+            updates = scale_updates(updates, knobs.d_lr_scale)
+        new = apply_updates(_d_trainable(ts.params, tcfg), updates)
     params = dict(ts.params, vid_discriminator=new["vid"])
     if "img" in new:
         params["img_discriminator"] = new["img"]
@@ -219,16 +245,20 @@ def _g_grads(ts: VidTrainState, z: Tensor, gen, cfg: VidGANConfig,
     with torch.enable_grad():
         fake_acts, g_out, vid_gs, _ = _fake_activations(params, state, z,
                                                         cfg, gen, knobs)
-        logits_fake, _ = vid_dcgan.vid_discriminator(
-            params["vid_discriminator"], state["vid_discriminator"],
-            fake_acts, cfg, train=True)
-        with collectives.per_clip():
-            realism = nn.sigmoid_ce(logits_fake,
-                                    torch.ones_like(logits_fake))
-        ff = (cfg.first_frame_loss_scalar
-              * vid_dcgan.first_frame_loss(g_out, z, cfg))
-        g_loss = realism + ff
-        grads = _grads(g_loss, keys, leaves)
+        with profile.span("vid.vid_d") as s:
+            logits_fake, _ = vid_dcgan.vid_discriminator(
+                params["vid_discriminator"], state["vid_discriminator"],
+                fake_acts, cfg, train=True)
+            s.mark(logits_fake)
+        with profile.span("vid.loss"):
+            with collectives.per_clip():
+                realism = nn.sigmoid_ce(logits_fake,
+                                        torch.ones_like(logits_fake))
+            ff = (cfg.first_frame_loss_scalar
+                  * vid_dcgan.first_frame_loss(g_out, z, cfg))
+            g_loss = realism + ff
+        with profile.span("vid.backward"):
+            grads = _grads(g_loss, keys, leaves)
     metrics = {"g_loss": g_loss, "g_loss_realism": realism,
                "first_frame_loss": ff}
     return grads, {k: v.detach() for k, v in metrics.items()}, vid_gs
@@ -239,8 +269,9 @@ def _g_step(ts: VidTrainState, z: Tensor, gen, cfg: VidGANConfig,
             knobs: Optional[Knobs] = None) -> Tuple[VidTrainState, Dict]:
     grads, metrics, vid_gs = _g_grads(ts, z, gen, cfg, tcfg, knobs)
     grads = collectives.reduce_gradients(grads, "opt_g")
-    updates, opt_g = opt.update(grads, ts.opt_g)
-    new = apply_updates(_g_trainable(ts.params, tcfg), updates)
+    with profile.span("vid.optimizer"):
+        updates, opt_g = opt.update(grads, ts.opt_g)
+        new = apply_updates(_g_trainable(ts.params, tcfg), updates)
     params = dict(ts.params, vid_generator=new["vid"])
     if "img" in new:
         params["img_generator"] = new["img"]
@@ -279,7 +310,8 @@ def train_chunk(ts: VidTrainState, frames_stack: Tensor, z_stack: Tensor,
     metrics stacked over the chunk."""
     ms = []
     for frames, z in zip(frames_stack, z_stack):
-        ts, m = train_step(ts, frames, z, gen, cfg, tcfg, knobs)
+        with profile.span("vid.step", z.device):
+            ts, m = train_step(ts, frames, z, gen, cfg, tcfg, knobs)
         ms.append(m)
     return ts, _stack(ms)
 
@@ -295,9 +327,10 @@ def train_chunk_ids(ts: VidTrainState, ids_stack: Tensor, z_stack: Tensor,
     Only one step's frames are alive at a time."""
     ms = []
     for idx, z in zip(ids_stack, z_stack):
-        g = sample_fn(corpus_data, idx)
-        frames = g.reshape((-1,) + g.shape[2:]) if g.ndim == 5 else g
-        ts, m = train_step(ts, frames, z, gen, cfg, tcfg, knobs)
+        with profile.span("vid.step", z.device):
+            g = sample_fn(corpus_data, idx)
+            frames = g.reshape((-1,) + g.shape[2:]) if g.ndim == 5 else g
+            ts, m = train_step(ts, frames, z, gen, cfg, tcfg, knobs)
         ms.append(m)
     return ts, _stack(ms)
 

@@ -252,3 +252,164 @@ def test_summarize_trace_keys_equal_the_jax_result(tmp_path):
 ])
 def test_category(name, want):
     assert tprofile.category(name) == want
+
+
+# ---------------------------------------------------------------------------
+# spans inside the VID_DCGAN step
+# ---------------------------------------------------------------------------
+
+NET_SPANS = ("vid.vid_g", "vid.img_g", "vid.img_d_tap", "vid.vid_d")
+BWD_SPANS = tuple(f"{n}.bwd" for n in NET_SPANS)
+# each span with its parent: the forward and update spans sit in the step,
+# the nets' backward parts in the update's backward pass
+PARENTS = {**{n: "vid.step" for n in NET_SPANS + (
+    "vid.loss", "vid.backward", "vid.optimizer")},
+    **{n: "vid.backward" for n in BWD_SPANS}, "vid.step": None}
+# one step of 1 D and 2 G updates
+COUNTS = {"vid.step": 1, "vid.vid_g": 3, "vid.img_g": 3, "vid.img_d_tap": 4,
+          "vid.vid_d": 4, "vid.loss": 3, "vid.backward": 3,
+          "vid.optimizer": 3, "vid.vid_d.bwd": 3, "vid.img_d_tap.bwd": 2,
+          "vid.img_g.bwd": 2, "vid.vid_g.bwd": 2}
+
+
+@pytest.fixture(scope="module")
+def vid_step():
+    """The tiny video GAN of tests/test_serve.py (widths 8, 32 px, 4
+    frames) and one batch: (state, frames, z, cfg, tcfg)."""
+    from gifgan_tpu_torch.core.config import (DCGANConfig, TrainConfig,
+                                              VidGANConfig)
+    from gifgan_tpu_torch.train import vid
+
+    img = DCGANConfig(output_size=32, c_dim=3, z_dim=16, gf_dim=8, df_dim=8)
+    cfg = VidGANConfig(z_input_size=20, z_output_size=16, vid_length=4,
+                       hidden_dim=32, d_filters=16, image_gan=img,
+                       first_frame_loss_scalar=1.0)
+    tcfg = TrainConfig(batch_size=4, disc_updates=1, gen_updates=2)
+    ts = vid.init_train_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                              device="cpu")
+    g = torch.Generator().manual_seed(1)
+    frames = torch.rand((16, 32, 32, 3), generator=g) * 2 - 1
+    z = torch.rand((4, 20), generator=g) * 2 - 1
+    return ts, frames, z, cfg, tcfg
+
+
+def _steps(vid_step, k=1):
+    from gifgan_tpu_torch.train import vid
+
+    ts, frames, z, cfg, tcfg = vid_step
+    return vid.train_chunk(ts, torch.stack([frames] * k),
+                           torch.stack([z] * k), None, cfg, tcfg)
+
+
+def profile_cpu():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _recorded(vid_step, k=1):
+    """k steps under a profiler session of their own (the summary taken
+    first sees the profiler off, so the session's spans start a list)."""
+    tprofile.span_summary()
+    with profile_cpu() as prof:
+        out = _steps(vid_step, k)
+    return out, prof
+
+
+def test_span_off_records_nothing(vid_step, monkeypatch):
+    """With no profiler: one shared no-op, and no record_function, hook,
+    CUDA event or record."""
+    def refuse(*a, **k):
+        raise AssertionError("called with no profiler active")
+
+    _recorded(vid_step)
+    before = tprofile.span_summary()
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.Tensor, "register_hook", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(tprofile, "_Record", refuse)
+    assert tprofile.span("a") is tprofile.span("b", "cpu")
+    _steps(vid_step)
+    assert tprofile.span_summary() == before
+
+
+def test_spans_of_one_step(vid_step):
+    """Every span of the step once per its work, inside its parent."""
+    _recorded(vid_step)
+    records = list(tprofile._SPANS.records)
+    s = tprofile.span_summary()
+    assert s["steps"] == 1
+    assert {n: v["count"] for n, v in s["spans"].items()} == COUNTS
+    for r in records:
+        assert (r.parent.name if r.parent else None) == PARENTS[r.name]
+        assert r.step == 1
+        assert r.host[0] <= r.host[1]
+        if r.parent:
+            assert r.parent.host[0] <= r.host[0] <= r.host[1] <= \
+                r.parent.host[1]
+
+
+def test_backward_parts_tile_the_backward_pass(vid_step):
+    """The nets' backward parts, after the loss's own, fill `vid.backward`;
+    forward, backward, Adam and the step's own time fill `vid.step`."""
+    _recorded(vid_step)
+    sp = tprofile.span_summary()["spans"]
+    bwd = sp["vid.backward"]
+    parts = sum(sp[n]["host_s"] for n in BWD_SPANS)
+    loss_part = bwd["self_device_s"]     # the CPU's clock is the host's
+    assert 0 < loss_part < bwd["host_s"]
+    assert parts + loss_part == pytest.approx(bwd["host_s"], rel=1e-2)
+    whole = sum(sp[n]["device_s"] for n in NET_SPANS + (
+        "vid.loss", "vid.backward", "vid.optimizer"))
+    assert whole + sp["vid.step"]["self_device_s"] == pytest.approx(
+        sp["vid.step"]["device_s"], rel=1e-9)
+
+
+def test_spans_are_user_annotations_of_the_capture(vid_step, tmp_path):
+    _, prof = _recorded(vid_step)
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert set(COUNTS) <= names
+
+
+@pytest.mark.parametrize("between", ["summary", "unrecorded_step",
+                                     "trace"])
+def test_two_sessions_give_two_summaries(vid_step, between, tmp_path):
+    """A session's first span starts a new list: in a session that
+    `trace` opens, or once the previous session's end has been seen (by a
+    summary, or by a span with no profiler). Else the second summary
+    would count three steps."""
+    _recorded(vid_step)
+    if between == "summary":
+        assert tprofile.span_summary()["steps"] == 1
+    if between == "unrecorded_step":
+        _steps(vid_step)
+    if between == "trace":
+        with tprofile.trace(str(tmp_path)):
+            _steps(vid_step, k=2)
+    else:
+        with profile_cpu():
+            _steps(vid_step, k=2)
+    second = tprofile.span_summary()
+    assert second["steps"] == 2
+    assert {n: v["count"] for n, v in second["spans"].items()} == {
+        n: 2 * c for n, c in COUNTS.items()}
+    assert tprofile.span_summary() == second
+
+
+def test_recorded_step_equals_the_unrecorded_one(vid_step):
+    """The spans and their hooks change no loss and no new state."""
+    from gifgan_tpu_torch.core.tree import flatten
+
+    (ts_on, m_on), _ = _recorded(vid_step)
+    ts_off, m_off = _steps(vid_step)
+    assert m_on.keys() == m_off.keys()
+    for k in m_off:
+        assert torch.equal(m_on[k], m_off[k]), k
+    on, off = flatten(ts_on._asdict()), flatten(ts_off._asdict())
+    assert on.keys() == off.keys()
+    for k in off:
+        assert torch.equal(on[k], off[k]), k
