@@ -385,7 +385,7 @@ class _Span:
         tensor.register_hook(hook)
 
 
-def span(name: str, device=None):
+def span(name: str, device=None, inner: bool = False):
     """`with profile.span("vid.img_g") as s: ...`: a named span of the
     program, recorded only while a torch.profiler session records.
 
@@ -402,10 +402,16 @@ def span(name: str, device=None):
     gradient a boundary: the first boundary of each net inside a later
     span (the backward pass) opens `<net>.bwd` there, which runs to the
     next net's boundary or to that span's end. What runs before the
-    first boundary is that span's self time."""
+    first boundary is that span's self time.
+
+    An `inner` span records only inside an open span on its thread, so
+    it never becomes a root: a layer's span, counted where a step's span
+    encloses it and nowhere else."""
     if not _autograd_profiler._is_profiler_enabled:
         if _SPANS.live:
             _SPANS.live = False     # the session that recorded has ended
+        return _OFF
+    if inner and not _SPANS.open.stack:
         return _OFF
     return _Span(name, device)
 

@@ -7,7 +7,10 @@ deconvs (BN+ReLU on the first three) -> tanh, NHWC. Discriminator: four
 h2 map (s/8, s/8, 4df) as a tap — the input of the video discriminator.
 
 One function per net with a `train` flag; BN running moments are explicit
-state. Parameters are dicts of float32 tensors (ops/nn.py layouts).
+state. Parameters are dicts of float32 tensors (ops/nn.py layouts). In
+inference mode each BN of the unconditional nets folds into the weight
+and bias of the layer before it (ops/nn.py bn_after), unless tensor
+parallelism splits that layer's weight.
 
 Under tensor parallelism (parallel/tp.py blocks, ops/nn.py forms) the
 nets keep every activation between layers whole except the
@@ -60,15 +63,17 @@ def generator(params, state, z: Tensor, cfg: DCGANConfig, train: bool,
     dtype = nn.torch_dtype(cfg.compute_dtype)
     s16, gf = cfg.output_size // 16, cfg.gf_dim
     new_state = {}
-    h = nn.linear(params["h0_lin"], z.to(dtype), dtype=dtype)
+    lin, bn0 = nn.bn_after(params["h0_lin"], params["bn0"], state["bn0"],
+                           train, 1, reps=s16 * s16)
+    h = nn.linear(lin, z.to(dtype), dtype=dtype)
     h = nn.gather_channels(h, s16 * s16 * gf * 8)
-    h = h.reshape(-1, s16, s16, gf * 8)
-    h, new_state["bn0"] = nn.batch_norm(params["bn0"], state["bn0"], h, train)
+    h, new_state["bn0"] = bn0(h.reshape(-1, s16, s16, gf * 8))
     h = torch.relu(h)
     for i, name in enumerate(["h1_deconv", "h2_deconv", "h3_deconv"]):
-        h = nn.deconv2d(params[name], h, dtype=dtype)
-        h, new_state[f"bn{i + 1}"] = nn.batch_norm(
-            params[f"bn{i + 1}"], state[f"bn{i + 1}"], h, train)
+        bn = f"bn{i + 1}"
+        layer, norm = nn.bn_after(params[name], params[bn], state[bn],
+                                  train, 1)
+        h, new_state[bn] = norm(nn.deconv2d(layer, h, dtype=dtype))
         h = torch.relu(h)
     impl = "subpixel" if cfg.packed_c3 else None
     h = nn.deconv2d(params["h4_deconv"], h, dtype=dtype, impl=impl)
@@ -104,11 +109,12 @@ def discriminator_tap(params, state, x: Tensor, cfg: DCGANConfig,
     impl0 = "s2d" if cfg.packed_c3 else None
     h = nn.lrelu(nn.conv2d(params["h0_conv"], x.to(dtype), dtype=dtype,
                            impl=impl0))
-    h = nn.conv2d(params["h1_conv"], h, dtype=dtype)
-    h, new_state["bn1"] = nn.batch_norm(params["bn1"], state["bn1"], h, train)
-    h = nn.lrelu(h)
-    h = nn.conv2d(params["h2_conv"], h, dtype=dtype)
-    h, new_state["bn2"] = nn.batch_norm(params["bn2"], state["bn2"], h, train)
+    layer, bn1 = nn.bn_after(params["h1_conv"], params["bn1"], state["bn1"],
+                             train, 0)
+    h, new_state["bn1"] = bn1(nn.conv2d(layer, h, dtype=dtype))
+    layer, bn2 = nn.bn_after(params["h2_conv"], params["bn2"], state["bn2"],
+                             train, 0)
+    h, new_state["bn2"] = bn2(nn.conv2d(layer, nn.lrelu(h), dtype=dtype))
     return nn.gather_channels(nn.lrelu(h), cfg.df_dim * 4), new_state
 
 
@@ -117,8 +123,9 @@ def discriminator(params, state, x: Tensor, cfg: DCGANConfig, train: bool,
     """image (B, s, s, c) -> (logits (B, 1) float32, h2 tap, new BN state)."""
     dtype = nn.torch_dtype(cfg.compute_dtype)
     h2, new_state = discriminator_tap(params, state, x, cfg, train)
-    h = nn.conv2d(params["h3_conv"], h2, dtype=dtype)
-    h, new_state["bn3"] = nn.batch_norm(params["bn3"], state["bn3"], h, train)
+    layer, bn3 = nn.bn_after(params["h3_conv"], params["bn3"], state["bn3"],
+                             train, 0)
+    h, new_state["bn3"] = bn3(nn.conv2d(layer, h2, dtype=dtype))
     h = nn.gather_channels(nn.lrelu(h), cfg.df_dim * 8)
     logits = nn.linear(params["h3_lin"], h.reshape(h.shape[0], -1),
                        dtype=dtype)

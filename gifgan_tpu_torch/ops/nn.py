@@ -6,7 +6,9 @@ at every function boundary, as in the JAX package; inside a layer the
 permute to NCHW is a free view whose strides PyTorch reads as
 `channels_last`, so the convolutions see channels-last memory. Each layer
 casts its parameters to the compute `dtype` (default: the input's), like
-the reference; BatchNorm math runs in float32 and is cast back.
+the reference; BatchNorm math runs in float32 and is cast back. An
+inference-mode BatchNorm after a layer with whole weights folds instead
+into that layer's weight and a float32 shift of its output (bn_after).
 
 The convolutions themselves are PyTorch's (cuDNN on the card): the JAX
 package leaves them to XLA, not to a Pallas kernel.
@@ -43,11 +45,12 @@ the axis) runs the plain layer on whole inputs.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
+from gifgan_tpu_torch.core import profile
 from gifgan_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
@@ -97,6 +100,14 @@ def _bias(params, dtype) -> Optional[Tensor]:
     without "b": the recurrent GAN's convs and deconvs have none)."""
     b = params.get("b")
     return None if b is None else b.to(dtype)
+
+
+def _shift(params, y: Tensor, shape) -> Tensor:
+    """y plus the layer's "shift", the float32 bias of a batch norm folded
+    into it (bn_after), viewed as `shape`: added in place, so the sum is
+    taken in float32 and held in y's dtype; y as it is without one."""
+    s = params.get("shift")
+    return y if s is None else y.add_(s.reshape(shape))
 
 
 def _column(params, x: Tensor, in_dim: int, out_dim: int):
@@ -152,7 +163,8 @@ def conv2d(params, x: Tensor, stride: int = 2, dtype=None,
             and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
         return _conv2d_s2d(params, x, dtype)
     xc = F.pad(_nchw(x.to(dtype)), _same_pads(x.shape[1:3], k, stride))
-    return _nhwc(F.conv2d(xc, w, _bias(params, dtype), stride=stride))
+    y = F.conv2d(xc, w, _bias(params, dtype), stride=stride)
+    return _nhwc(_shift(params, y, (-1, 1, 1)))
 
 
 def _conv2d_s2d(params, x: Tensor, dtype) -> Tensor:
@@ -232,8 +244,10 @@ def deconv2d(params, x: Tensor, stride: int = 2, dtype=None,
     total = max(k - stride, 0)
     pl = total // 2
     crop = (total - pl) - pl
-    y = F.conv_transpose2d(_nchw(x.to(dtype)), w, _bias(params, dtype),
-                           stride=stride, padding=pl)
+    y = _shift(params, F.conv_transpose2d(_nchw(x.to(dtype)), w,
+                                          _bias(params, dtype),
+                                          stride=stride, padding=pl),
+               (-1, 1, 1))
     if crop:
         y = y[:, :, :-crop, :-crop]
     return _nhwc(y)
@@ -272,6 +286,8 @@ def linear_init(gen, in_dim: int, out_dim: int, stddev=0.02,
 def linear(params, x: Tensor, dtype=None) -> Tensor:
     dtype = dtype or x.dtype
     params, x = _column(params, x, 0, 1)
+    if "b" not in params:
+        return _shift(params, x.to(dtype) @ params["w"].to(dtype), (-1,))
     return torch.addmm(params["b"].to(dtype), x.to(dtype),
                        params["w"].to(dtype))
 
@@ -327,6 +343,54 @@ def batch_norm(params, state, x: Tensor, train: bool,
     inv = torch.rsqrt(var + eps) * scale
     y = (xf - mean) * inv + bias
     return y.to(x.dtype), new_state
+
+
+def fold_bn(layer: Dict, bn_params: Dict, bn_state: Dict, out_axis: int,
+            eps: float = 1e-5) -> Dict:
+    """Fold inference-mode batch_norm (train=False) into the preceding
+    affine layer: W' = W * g along `out_axis` of W, b' = (b - mean) * g
+    + beta, g = scale * rsqrt(var + eps), in float32. Exact up to
+    reassociation, and differentiable in the layer's and the BN's params.
+    Recorded as an `nn.bn_fold` span inside an open span."""
+    with profile.span("nn.bn_fold", inner=True):
+        g = bn_params["scale"] * torch.rsqrt(bn_state["var"] + eps)
+        w = layer["w"].float()
+        shape = [1] * w.ndim
+        shape[out_axis] = -1
+        return {"w": w * g.reshape(shape),
+                "b": (layer["b"].float() - bn_state["mean"]) * g
+                     + bn_params["bias"]}
+
+
+def tile_bn(d: Dict, reps: int) -> Dict:
+    """BN vectors repeated over `reps` leading positions: a BN applied
+    after reshaping a linear's (B, reps * C) output to (..., C) normalizes
+    output index p * C + c with the vectors' entry c."""
+    return {k: v.repeat(reps) for k, v in d.items()}
+
+
+def bn_after(layer: Dict, bn_params: Dict, bn_state: Dict, train: bool,
+             out_axis: int, reps: int = 1):
+    """(params, norm) for a plain conv2d, deconv2d or linear whose output
+    batch_norm(bn_params, bn_state, ., train) normalizes: run the layer
+    with `params`, then `y, new_state = norm(out)`.
+
+    In inference mode with whole weights (no model axis) the BN is a
+    per-channel affine of constants, so it folds into the layer (fold_bn,
+    its vectors tiled `reps` times for a BN after a reshape, tile_bn):
+    `params` holds the folded weight and, as its "shift", the folded bias,
+    which the layer adds in float32 as the BN did (in the compute dtype it
+    would round a bias of order |mean * g| on every channel alike), and
+    `norm` passes its input and the state through unchanged. Otherwise
+    `params` is the layer's own and `norm` is batch_norm."""
+    if train or collectives.model_group() is not None:
+        return layer, functools.partial(batch_norm, bn_params, bn_state,
+                                        train=train)
+    p, s = ((tile_bn(bn_params, reps), tile_bn(bn_state, reps)) if reps > 1
+            else (bn_params, bn_state))
+    folded = fold_bn(layer, p, s, out_axis)
+    return ({"w": folded["w"], "shift": folded["b"]},
+            lambda y: (y, bn_state))
 
 
 # ---------------------------------------------------------------------------

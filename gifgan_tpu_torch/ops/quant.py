@@ -5,7 +5,8 @@ and the weights are frozen. The recipe and the names are the JAX
 package's:
 
   1. fold inference-mode BN into the preceding linear or deconv
-     (w' = w * g, b' = (b - mean) * g + beta, g = scale * rsqrt(var + eps));
+     (ops/nn.py fold_bn: w' = w * g, b' = (b - mean) * g + beta,
+     g = scale * rsqrt(var + eps));
   2. quantize the folded weights to int8 per OUTPUT channel (symmetric,
      scale = max|w'| / 127);
   3. quantize activations per tensor, dynamically (scale from max|x|, a
@@ -54,6 +55,7 @@ from gifgan_tpu_torch.core.rng import PRNGSequence, uniform_z
 from gifgan_tpu_torch.core.tree import flatten, unflatten
 from gifgan_tpu_torch.models.vid_dcgan import frame_inputs
 from gifgan_tpu_torch.ops import nn
+from gifgan_tpu_torch.ops.nn import fold_bn, tile_bn
 from gifgan_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
@@ -67,24 +69,6 @@ QMAX = 127.0
 # (CUBLAS_STATUS_NOT_SUPPORTED, H100, torch 2.11), so int8_matmul pads rows
 # to a multiple of 8, at least 32, and k and n to multiples of 8
 _MIN_ROWS, _ALIGN = 32, 8
-
-
-# ---------------------------------------------------------------------------
-# BN folding
-# ---------------------------------------------------------------------------
-
-def fold_bn(layer: Dict, bn_params: Dict, bn_state: Dict, out_axis: int,
-            eps: float = 1e-5) -> Dict:
-    """Fold inference-mode batch_norm (ops/nn.py, train=False) into the
-    preceding affine layer: W' = W * g along `out_axis` of W,
-    b' = (b - mean) * g + beta. Exact in float32 up to reassociation."""
-    g = bn_params["scale"] * torch.rsqrt(bn_state["var"] + eps)
-    w = layer["w"].float()
-    shape = [1] * w.ndim
-    shape[out_axis] = -1
-    return {"w": w * g.reshape(shape),
-            "b": (layer["b"].float() - bn_state["mean"]) * g
-                 + bn_params["bias"]}
 
 
 # ---------------------------------------------------------------------------
@@ -337,13 +321,6 @@ def qdeconv2d(q: Dict, x: Tensor, stride: int = 2, obs=None,
 # model-level: image DCGAN generator (models/dcgan.py, train=False)
 # ---------------------------------------------------------------------------
 
-def _tile_bn(d: Dict, reps: int) -> Dict:
-    """Expand per-channel BN vectors across `reps` leading spatial positions:
-    the generator applies bn0 after reshaping h0_lin's output to (B, s16,
-    s16, gf*8), so output index ((h*s16)+w)*C + c normalizes with g[c]."""
-    return {k: v.repeat(reps) for k, v in d.items()}
-
-
 def _as_float_layer(folded: Dict) -> Dict:
     return {"w": folded["w"].float(), "b": folded["b"].float()}
 
@@ -366,8 +343,8 @@ def quantize_image_generator(params: Dict, state: Dict,
                 else quantize_weight(folded, out_axis=1))
 
     q = {"h0_lin": mk("h0_lin", fold_bn(params["h0_lin"],
-                                        _tile_bn(params["bn0"], reps),
-                                        _tile_bn(state["bn0"], reps), 1)),
+                                        tile_bn(params["bn0"], reps),
+                                        tile_bn(state["bn0"], reps), 1)),
          "h4_deconv": mk("h4_deconv", params["h4_deconv"])}
     for i, name in enumerate(["h1_deconv", "h2_deconv", "h3_deconv"]):
         q[name] = mk(name, fold_bn(params[name], params[f"bn{i + 1}"],
@@ -446,8 +423,8 @@ def image_generator_folded(params: Dict, state: Dict, z: Tensor,
     separates quantization error from folding error."""
     s16 = cfg.output_size // 16
     reps = params["h0_lin"]["w"].shape[1] // params["bn0"]["scale"].shape[0]
-    h = _affine(fold_bn(params["h0_lin"], _tile_bn(params["bn0"], reps),
-                        _tile_bn(state["bn0"], reps), 1), z)
+    h = _affine(fold_bn(params["h0_lin"], tile_bn(params["bn0"], reps),
+                        tile_bn(state["bn0"], reps), 1), z)
     h = torch.relu(h.reshape(-1, s16, s16, cfg.gf_dim * 8))
     for i, name in enumerate(["h1_deconv", "h2_deconv", "h3_deconv"]):
         folded = fold_bn(params[name], params[f"bn{i + 1}"],

@@ -12,6 +12,8 @@ per-layer accumulation-order differences (1e-5 each, test_torch_nn.py);
 train-mode BN divides by batch standard deviations and amplifies them.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,7 @@ from gifgan_tpu_torch.core.config import DCGANConfig as TDCGANConfig
 from gifgan_tpu_torch.core.config import VidGANConfig as TVidGANConfig
 from gifgan_tpu_torch.models import dcgan as tdcgan
 from gifgan_tpu_torch.models import vid_dcgan as tvid
+from gifgan_tpu_torch.ops import nn as tnn
 
 RTOL = 1e-4
 
@@ -219,3 +222,138 @@ def test_dcgan_init_and_sample():
                                train=False)
     assert x.shape == (5, 32, 32, 3) and torch.equal(x, want)
     assert not x.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# the image nets' inference batch norm, folded into the layer before it
+# (ops/nn.py bn_after), against the unfolded composition
+# ---------------------------------------------------------------------------
+
+IMG_NETS = ("generator", "discriminator_tap", "discriminator")
+
+
+def _unfolded_bn_after(layer, bn_params, bn_state, train, out_axis, reps=1):
+    """nn.bn_after without the fold: the layer as it is, then
+    nn.batch_norm."""
+    return layer, functools.partial(tnn.batch_norm, bn_params, bn_state,
+                                    train=train)
+
+
+def _img_net(net, dtype="float32", seed=0, batch=16):
+    """run(params, train, fold) -> (outputs..., new state) of one image
+    net at test size, with its (params, BN state): weights at std 0.05
+    (activations of order 1 through every layer), BN params and running
+    moments far from the init's, all drawn from `seed`."""
+    kw = dict(output_size=32, c_dim=3, z_dim=8, gf_dim=8, df_dim=8,
+              packed_c3=True)
+    jcfg, tcfg = DCGANConfig(**kw), TDCGANConfig(compute_dtype=dtype, **kw)
+    init = (jdcgan.init_generator if net == "generator"
+            else jdcgan.init_discriminator)
+    jp, _ = init(jax.random.PRNGKey(0), jcfg)
+    params = interop.from_jax_flat(
+        randomize(_flatten_with_paths(jp), seed, std=0.05), device="cpu")
+    rng = np.random.default_rng(seed + 1000)
+    state = {}
+    for k in [k for k in params if k.startswith("bn")]:
+        c = params[k]["scale"].shape[0]
+        params[k] = {"scale": 1 + 0.3 * rng.standard_normal(c),
+                     "bias": 0.5 * rng.standard_normal(c)}
+        state[k] = {"mean": 0.5 * rng.standard_normal(c),
+                    "var": rng.uniform(0.3, 3.0, c)}
+    params, state = ({k: {m: torch.as_tensor(v, dtype=torch.float32)
+                          for m, v in d.items()} for k, d in t.items()}
+                     for t in (params, state))
+    shape = (batch, 8) if net == "generator" else (batch, 32, 32, 3)
+    x = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+    fn = getattr(tdcgan, net)
+
+    def run(p, train, fold=True):
+        with pytest.MonkeyPatch.context() as mp:
+            if not fold:
+                mp.setattr(tnn, "bn_after", _unfolded_bn_after)
+            return fn(p, state, x, tcfg, train)
+
+    return run, params, state
+
+
+@pytest.mark.parametrize("net", IMG_NETS)
+def test_inference_fold_float32(net):
+    """train=False, float32: every output within 1e-5 of its largest
+    |value| of the unfolded composition's; the BN state unchanged."""
+    run, params, state = _img_net(net)
+    *got, got_s = run(params, False)
+    *want, _ = run(params, False, fold=False)
+    for g, w in zip(got, want):
+        assert float(w.abs().max()) > 0.1
+        err = float((g - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), err
+    assert got_s.keys() <= state.keys() and got_s
+    assert all(got_s[k] is state[k] for k in got_s)
+
+
+@pytest.mark.parametrize("net", IMG_NETS)
+def test_inference_fold_bfloat16(net):
+    """train=False, bfloat16: no further from the float32 unfolded
+    composition than the bfloat16 unfolded one, with a margin of 10 %.
+
+    Further: the root of the summed squared differences over 24 nets.
+    Either path rounds its weights to bfloat16 once (w * g against w),
+    so each net draws one fixed rounding of them, and a readout of few
+    numbers (the logits) parts the two paths by 0.6-1.7x either way from
+    net to net; the pool averages that draw out."""
+    sq = []
+    for seed in range(24):
+        run32, params, _ = _img_net(net, seed=seed)
+        run16, _, _ = _img_net(net, "bfloat16", seed=seed)
+        *ref, _ = run32(params, False, fold=False)
+        *got, _ = run16(params, False)
+        *unf, _ = run16(params, False, fold=False)
+        sq.append([(float((g.float() - r).pow(2).sum()),
+                    float((u.float() - r).pow(2).sum()))
+                   for r, g, u in zip(ref, got, unf)])
+    for i in range(len(sq[0])):
+        fold = sum(s[i][0] for s in sq) ** 0.5
+        unfold = sum(s[i][1] for s in sq) ** 0.5
+        assert 0 < fold <= 1.1 * unfold, (i, fold, unfold)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("net", IMG_NETS)
+def test_train_mode_does_not_fold(net, dtype):
+    """train=True: outputs and new state bit for bit the unfolded
+    code's."""
+    run, params, _ = _img_net(net, dtype)
+    *got, got_s = run(params, True)
+    *want, want_s = run(params, True, fold=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got_s.keys() == want_s.keys()
+    for k in want_s:
+        for m in ("mean", "var"):
+            assert torch.equal(got_s[k][m], want_s[k][m]), (k, m)
+
+
+@pytest.mark.parametrize("net", IMG_NETS)
+def test_inference_fold_gradients_of_trainable_nets(net):
+    """A trainable image net in inference mode (train_img_gen,
+    train_img_disc): the gradients of every w, b, scale and bias through
+    the fold match the unfolded path's, float32."""
+    run, params, _ = _img_net(net)
+    grads = []
+    for fold in (True, False):
+        p = {k: {m: v.clone().requires_grad_(True) for m, v in d.items()}
+             for k, d in params.items()}
+        *outs, _ = run(p, False, fold)
+        loss = sum((o * torch.cos(torch.arange(o.numel()).reshape(o.shape)
+                                  .float())).sum() for o in outs)
+        keys = [(k, m) for k in sorted(p) for m in sorted(p[k])]
+        gs = torch.autograd.grad(loss, [p[k][m] for k, m in keys],
+                                 allow_unused=True)
+        grads.append(dict(zip(keys, gs)))
+    got, want = grads
+    for key, w in want.items():
+        if w is None:                  # the tap's unused h3 layers
+            assert got[key] is None, key
+            continue
+        err = float((got[key] - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), (key, err)

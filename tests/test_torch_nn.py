@@ -194,3 +194,96 @@ def test_packed_forms_match_plain_port(packed):
         x = torch.from_numpy(_normal(rng, (2, 4, 4, 6)))
         got, want = tnn.deconv2d(p, x, impl="subpixel"), tnn.deconv2d(p, x)
     _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# inference batch norm folded into the layer before it (bn_after, fold_bn)
+# ---------------------------------------------------------------------------
+
+def _t(a):
+    return torch.from_numpy(a)
+
+
+def _random_bn(rng, c):
+    """BN params and running moments far from the init's (1, 0) and
+    (0, 1), so a fold that misuses one of them shows."""
+    return ({"scale": _t(1 + _normal(rng, (c,), 0.3)),
+             "bias": _t(_normal(rng, (c,), 0.5))},
+            {"mean": _t(_normal(rng, (c,), 0.5)),
+             "var": _t(rng.uniform(0.3, 3.0, c).astype(np.float32))})
+
+
+def _fold_case(kind):
+    """(layer params, BN params, BN state, x, out_axis, reps, run): run(p,
+    x) is the layer's output as the BN sees it. The linear's BN follows a
+    reshape of its (B, 2*2*4) output to (B, 2, 2, 4), as bn0 does in the
+    generator."""
+    rng = np.random.default_rng({"linear": 11, "deconv": 12, "conv": 13}[kind])
+    if kind == "linear":
+        layer = {"w": _normal(rng, (6, 16), 0.4), "b": _normal(rng, (16,))}
+        x, out_axis, reps = _normal(rng, (5, 6)), 1, 4
+
+        def run(p, x):
+            return tnn.linear(p, x).reshape(-1, 2, 2, 4)
+    elif kind == "deconv":
+        layer = {"w": _normal(rng, (6, 4, 5, 5), 0.2),
+                 "b": _normal(rng, (4,))}
+        x, out_axis, reps, run = (_normal(rng, (3, 4, 4, 6)), 1, 1,
+                                  tnn.deconv2d)
+    else:
+        layer = {"w": _normal(rng, (4, 6, 5, 5), 0.2),
+                 "b": _normal(rng, (4,))}
+        x, out_axis, reps, run = (_normal(rng, (3, 8, 8, 6)), 0, 1,
+                                  tnn.conv2d)
+    bn_p, bn_s = _random_bn(rng, 4)
+    return ({k: _t(v) for k, v in layer.items()}, bn_p, bn_s, _t(x),
+            out_axis, reps, run)
+
+
+def _within(got, want, frac=1e-5, what=""):
+    """|got - want| within `frac` of want's largest |value|."""
+    err = float((got - want).abs().max())
+    assert err <= frac * float(want.abs().max()), (what, err)
+
+
+@pytest.mark.parametrize("kind", ["linear", "deconv", "conv"])
+def test_bn_after_folds_inference_bn(kind):
+    """Folded against unfolded pre-activation, float32: the output and
+    the input's gradient; the state comes back as it was."""
+    layer, bn_p, bn_s, x, out_axis, reps, run = _fold_case(kind)
+    folded, norm = tnn.bn_after(layer, bn_p, bn_s, False, out_axis, reps)
+    assert folded is not layer
+    xs = [x.clone().requires_grad_(True) for _ in range(2)]
+    got, state = norm(run(folded, xs[0]))
+    want, _ = tnn.batch_norm(bn_p, bn_s, run(layer, xs[1]), False)
+    assert state is bn_s
+    _within(got.detach(), want.detach(), what="forward")
+    ct = torch.randn(want.shape, generator=torch.Generator().manual_seed(0))
+    (dx_got,) = torch.autograd.grad(got, xs[0], ct)
+    (dx_want,) = torch.autograd.grad(want, xs[1], ct)
+    _within(dx_got, dx_want, what="d input")
+
+
+@pytest.mark.parametrize("kind", ["linear", "deconv", "conv"])
+def test_bn_fold_passes_gradients_to_the_params(kind):
+    """A trainable layer and BN: the gradients of w, b, scale and bias
+    through the fold equal the unfolded path's, float32."""
+    layer, bn_p, bn_s, x, out_axis, reps, run = _fold_case(kind)
+    ct = None
+    grads = []
+    for fold in (True, False):
+        lp = {k: v.clone().requires_grad_(True) for k, v in layer.items()}
+        bp = {k: v.clone().requires_grad_(True) for k, v in bn_p.items()}
+        if fold:
+            p, norm = tnn.bn_after(lp, bp, bn_s, False, out_axis, reps)
+            y, _ = norm(run(p, x))
+        else:
+            y, _ = tnn.batch_norm(bp, bn_s, run(lp, x), False)
+        if ct is None:
+            ct = torch.randn(y.shape,
+                             generator=torch.Generator().manual_seed(1))
+        leaves = [lp["w"], lp["b"], bp["scale"], bp["bias"]]
+        grads.append(torch.autograd.grad(y, leaves, ct))
+    for name, got, want in zip(("w", "b", "scale", "bias"), *grads):
+        assert float(want.abs().max()) > 0, name
+        _within(got, want, what=name)

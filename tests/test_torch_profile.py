@@ -260,16 +260,18 @@ def test_category(name, want):
 
 NET_SPANS = ("vid.vid_g", "vid.img_g", "vid.img_d_tap", "vid.vid_d")
 BWD_SPANS = tuple(f"{n}.bwd" for n in NET_SPANS)
-# each span with its parent: the forward and update spans sit in the step,
-# the nets' backward parts in the update's backward pass
-PARENTS = {**{n: "vid.step" for n in NET_SPANS + (
+# each span with the parents it may have: the forward and update spans
+# sit in the step, the nets' backward parts in the update's backward
+# pass, the folds of the frozen nets' inference BN in those nets' spans
+PARENTS = {**{n: ("vid.step",) for n in NET_SPANS + (
     "vid.loss", "vid.backward", "vid.optimizer")},
-    **{n: "vid.backward" for n in BWD_SPANS}, "vid.step": None}
-# one step of 1 D and 2 G updates
+    **{n: ("vid.backward",) for n in BWD_SPANS}, "vid.step": (None,),
+    "nn.bn_fold": ("vid.img_g", "vid.img_d_tap")}
+# one step of 1 D and 2 G updates; 4 folds an image G, 2 a tap
 COUNTS = {"vid.step": 1, "vid.vid_g": 3, "vid.img_g": 3, "vid.img_d_tap": 4,
           "vid.vid_d": 4, "vid.loss": 3, "vid.backward": 3,
           "vid.optimizer": 3, "vid.vid_d.bwd": 3, "vid.img_d_tap.bwd": 2,
-          "vid.img_g.bwd": 2, "vid.vid_g.bwd": 2}
+          "vid.img_g.bwd": 2, "vid.vid_g.bwd": 2, "nn.bn_fold": 20}
 
 
 @pytest.fixture(scope="module")
@@ -341,7 +343,7 @@ def test_spans_of_one_step(vid_step):
     assert s["steps"] == 1
     assert {n: v["count"] for n, v in s["spans"].items()} == COUNTS
     for r in records:
-        assert (r.parent.name if r.parent else None) == PARENTS[r.name]
+        assert (r.parent.name if r.parent else None) in PARENTS[r.name]
         assert r.step == 1
         assert r.host[0] <= r.host[1]
         if r.parent:
@@ -413,3 +415,27 @@ def test_recorded_step_equals_the_unrecorded_one(vid_step):
     assert on.keys() == off.keys()
     for k in off:
         assert torch.equal(on[k], off[k]), k
+
+
+def test_bn_folds_are_spans_of_an_open_span_only(vid_step):
+    """A fold records an `nn.bn_fold` span inside an open span and
+    nothing outside one: a profiled `sample_videos` after the step adds
+    no root, so no step, and no fold; inside a span its image G records
+    its 4."""
+    from gifgan_tpu_torch.train import vid
+
+    ts, _, z, cfg, _ = vid_step
+    tprofile.span_summary()
+    with profile_cpu():
+        _steps(vid_step)
+        vid.sample_videos(ts, z, cfg)
+    s = tprofile.span_summary()
+    assert s["steps"] == 1
+    assert s["spans"]["nn.bn_fold"]["count"] == 20
+    with profile_cpu():
+        with tprofile.span("serve"):
+            vid.sample_videos(ts, z, cfg)
+    s = tprofile.span_summary()
+    assert s["steps"] == 1
+    assert {n: v["count"] for n, v in s["spans"].items()} == {
+        "serve": 1, "nn.bn_fold": 4}

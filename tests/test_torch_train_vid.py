@@ -160,9 +160,13 @@ def _jax_loss_fns(ts, frames, z, cfg):
 @pytest.mark.parametrize("train_img", [False, True])
 def test_step_gradients_match_jax(role, train_img):
     """One D step's and one G step's gradients over the trainable partition
-    (with the image nets unfrozen too), against jax.grad."""
+    (with the image nets unfrozen too), against jax.grad. The state of seed
+    1: seed 0's puts one input of an image-G ReLU at 1e-8 of its layer's
+    largest value, where the order of the float32 sums decides its routing
+    (the image nets' folded inference BN, ops/nn.py bn_after, sums in
+    another order than the JAX package's BN)."""
     jc, jt, tc, tt = _cfgs(train_img_gen=train_img, train_img_disc=train_img)
-    flat = _random_state_flat(jc, jt)
+    flat = _random_state_flat(jc, jt, seed=1)
     jts, tts = _jax_state(flat), _port_state(flat)
     clips, ids, z = _inputs()
     frames = (clips[ids[0]].reshape(-1, 32, 32, 3).astype(np.float32)

@@ -10,9 +10,10 @@ the test process builds the same ones for its references. Imports no JAX.
 
 from __future__ import annotations
 
-import contextlib
+import functools
 import os
 import sys
+from unittest import mock
 
 import numpy as np
 import torch
@@ -27,6 +28,7 @@ for p in (REPO, TESTS):
 import torch_parallel_ranks as P  # noqa: E402
 from gifgan_tpu_torch.core import config as tconfig  # noqa: E402
 from gifgan_tpu_torch.core.tree import flatten  # noqa: E402
+from gifgan_tpu_torch.ops import nn  # noqa: E402
 
 # 32 px, c 3, gf = df = 8, packed convs; z_dim 12 so that no activation
 # a step gathers over `model` has the shape of a weight's block (the
@@ -164,6 +166,13 @@ def dcgan_nets():
     return cfg, params, state, torch.from_numpy(z.astype(np.float32))
 
 
+def _unfolded_bn_after(layer, bn_params, bn_state, train, out_axis, reps=1):
+    """nn.bn_after as the model axis runs it: the layer as it is, then
+    nn.batch_norm."""
+    return layer, functools.partial(nn.batch_norm, bn_params, bn_state,
+                                    train=train)
+
+
 def dcgan_tp(mesh=None):
     """The image generator's samples and the discriminator's logits and
     h2 tap on them, inference mode, with the params whole (mesh None) or
@@ -177,8 +186,14 @@ def dcgan_tp(mesh=None):
     if mesh is not None:
         params = {k: shard_dcgan_params_tp(mesh, v)
                   for k, v in params.items()}
+    # whole weights fold the inference BN into the layer before it
+    # (ops/nn.py bn_after), and the fold sums in another order by ~1e-6
+    # of a layer's largest value: the one-process nets keep the model
+    # axis's layers, the BN unfolded (tests/test_torch_models.py holds the
+    # fold to them)
     ctx = (collectives.use(mesh.group("data"), model=mesh.group(MODEL_AXIS))
-           if mesh is not None else contextlib.nullcontext())
+           if mesh is not None else
+           mock.patch.object(nn, "bn_after", _unfolded_bn_after))
     with ctx, torch.no_grad():
         x, _ = dcgan.generator(params["generator"], state["generator"], z,
                                cfg, train=False)
