@@ -8,7 +8,8 @@ The commands `train-dcgan`, `train-vid`, `train-recurrent`, `sample-wall`,
 `survey-serve`, `survey-pairs`, `bench`, `ckpt-downgrade` and
 `ckpt-inspect` (all 27 of the JAX package's), with the flags of the JAX
 package's (gifgan_tpu/cli.py), plus `--device` where a command touches
-the card: it runs on the CUDA card unless `--device cpu` is given.
+the card: it runs on the CUDA card unless `--device cpu` is given. One
+command is the port's alone: `train-prednet`.
 
 `--data-parallel`/`--fsdp`, and train-vid's `--tensor-parallel` and
 `--seq-parallel`, run one process a rank, as torchrun starts them
@@ -306,6 +307,48 @@ def cmd_train_recurrent(args) -> None:
         lambda: batches_from_array(clips, args.batch_size, shuffle=True,
                                    seed=args.seed),
         cfg, _train_cfg(args), **kw)
+
+
+def cmd_train_prednet(args) -> None:
+    """PredNet (models/prednet.py), one Adam update a batch; a command of
+    the port alone. The defaults are the published KITTI run's
+    (github.com/coxlab/prednet kitti_train.py); the JAX package's minimal
+    model is `--stack-sizes 3 C0 --r-stack-sizes C0 C1 --lstm-gate sigmoid`.
+    --dataset: "synthetic" (face-blob clips,
+    cropped to the frame) or a .npy file of (N, nt, h, w, c) uint8 clips."""
+    from gifgan_tpu_torch.core.config import TrainConfig
+    from gifgan_tpu_torch.data.loader import batches_from_array
+    from gifgan_tpu_torch.models.prednet import PredNetConfig
+    from gifgan_tpu_torch.train import loops
+
+    h, w = args.frame
+    cfg = PredNetConfig(
+        c_dim=args.stack_sizes[0], stack_sizes=tuple(args.stack_sizes),
+        r_stack_sizes=tuple(args.r_stack_sizes), frame=(h, w),
+        lstm_gate=args.lstm_gate, compute_dtype=args.compute_dtype)
+    tcfg = TrainConfig(
+        batch_size=args.batch_size, learning_rate=args.learning_rate,
+        beta1=args.beta1, epochs=args.epochs, sample_every=args.sample_every,
+        checkpoint_every=args.checkpoint_every,
+        max_checkpoints_to_keep=args.max_checkpoints_to_keep,
+        seed=args.seed, run_dir=args.run_dir)
+    if args.dataset == "synthetic":
+        from gifgan_tpu_torch.data.synthetic import synthetic_clips
+
+        clips = synthetic_clips(args.dataset_size, length=args.nt,
+                                size=max(h, w), channels=cfg.c_dim)
+        clips = np.ascontiguousarray(clips[:, :, :h, :w])
+    else:
+        clips = np.load(args.dataset)
+    kw = dict(resume=not args.no_resume, steps_limit=args.steps_limit,
+              device=args.device)
+    if args.device_corpus:
+        loops.train_prednet(None, cfg, tcfg, clips_u8=clips, **kw)
+        return
+    clips = clips.astype(np.float32) / 255.0
+    loops.train_prednet(
+        lambda seed: batches_from_array(clips, args.batch_size, seed=seed),
+        cfg, tcfg, **kw)
 
 
 def _vid_sample_fn(args):
@@ -968,6 +1011,50 @@ def build_parser() -> argparse.ArgumentParser:
                         "sample each batch there in [0, 1] (the take "
                         "gather: K1 bakes [-1, 1]); the host ships ids")
     p.set_defaults(fn=cmd_train_recurrent)
+
+    p = sub.add_parser("train-prednet",
+                       help="train PredNet (next-frame prediction)")
+    p.add_argument("--stack-sizes", type=int, nargs="+",
+                   default=[3, 48, 96, 192],
+                   help="A and A_hat channels a level; the first is the "
+                        "frame's")
+    p.add_argument("--r-stack-sizes", type=int, nargs="+",
+                   default=[3, 48, 96, 192], help="R channels a level")
+    p.add_argument("--frame", type=int, nargs=2, default=[128, 160],
+                   metavar=("H", "W"))
+    p.add_argument("--nt", type=int, default=10,
+                   help="frames a synthetic clip (a .npy dataset brings its "
+                        "own)")
+    p.add_argument("--lstm-gate", default="hard_sigmoid",
+                   choices=["hard_sigmoid", "sigmoid"],
+                   help="hard_sigmoid, no forget bias, glorot_uniform "
+                        "weights (published); sigmoid with +1 on the forget "
+                        "gate, normal 0.05 weights (the JAX package's)")
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="the convolutions' dtype; gates, state and errors "
+                        "stay float32")
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--learning-rate", type=float, default=1e-3)
+    p.add_argument("--beta1", type=float, default=0.9)
+    p.add_argument("--epochs", type=int, default=150)
+    p.add_argument("--sample-every", type=int, default=100)
+    p.add_argument("--checkpoint-every", type=int, default=500)
+    p.add_argument("--max-checkpoints-to-keep", type=int, default=5)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--run-dir", required=True)
+    p.add_argument("--steps-limit", type=int, default=None)
+    p.add_argument("--dataset", default="synthetic",
+                   help="'synthetic' or a .npy of (N, nt, h, w, c) uint8 "
+                        "clips")
+    p.add_argument("--dataset-size", type=int, default=256)
+    p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--device-corpus", action="store_true",
+                   help="upload the uint8 clip corpus to the card once and "
+                        "sample each batch there in [0, 1]; the host ships "
+                        "ids")
+    _add_device_arg(p, "the training run")
+    p.set_defaults(fn=cmd_train_prednet)
 
     p = sub.add_parser("sample-wall", help="continuous GIF sampler")
     p.add_argument("--checkpoint", required=True,

@@ -103,9 +103,10 @@ def _bias(params, dtype) -> Optional[Tensor]:
 
 
 def _shift(params, y: Tensor, shape) -> Tensor:
-    """y plus the layer's "shift", the float32 bias of a batch norm folded
-    into it (bn_after), viewed as `shape`: added in place, so the sum is
-    taken in float32 and held in y's dtype; y as it is without one."""
+    """y plus the layer's "shift", a float32 bias (a batch norm's folded
+    into the layer by bn_after, or a bias kept in float32), viewed as
+    `shape`: added in place, so the sum is taken in float32 and held in
+    y's dtype; y as it is without one."""
     s = params.get("shift")
     return y if s is None else y.add_(s.reshape(shape))
 
@@ -154,7 +155,9 @@ def conv2d(params, x: Tensor, stride: int = 2, dtype=None,
            impl: Optional[str] = None) -> Tensor:
     """NHWC TF-SAME conv; a `params` without "b" has no bias. impl="s2d"
     takes the space-to-depth form for 5x5/2 on even inputs (same function,
-    other accumulation order)."""
+    other accumulation order). Padding that is the same on both sides of
+    each axis (stride 1, odd k) goes to the convolution itself, so no
+    padded copy of the input is made."""
     dtype = dtype or x.dtype
     params, x = _column(params, x, 1, 0)
     w = params["w"].to(dtype)
@@ -162,8 +165,12 @@ def conv2d(params, x: Tensor, stride: int = 2, dtype=None,
     if (impl == "s2d" and stride == 2 and k == 5
             and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
         return _conv2d_s2d(params, x, dtype)
-    xc = F.pad(_nchw(x.to(dtype)), _same_pads(x.shape[1:3], k, stride))
-    y = F.conv2d(xc, w, _bias(params, dtype), stride=stride)
+    xc, pads = _nchw(x.to(dtype)), _same_pads(x.shape[1:3], k, stride)
+    if pads[0::2] == pads[1::2]:
+        y = F.conv2d(xc, w, _bias(params, dtype), stride=stride,
+                     padding=(pads[2], pads[0]))
+    else:
+        y = F.conv2d(F.pad(xc, pads), w, _bias(params, dtype), stride=stride)
     return _nhwc(_shift(params, y, (-1, 1, 1)))
 
 

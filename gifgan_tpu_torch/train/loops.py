@@ -53,6 +53,7 @@ from gifgan_tpu_torch.core.rng import PRNGSequence, uniform_z
 from gifgan_tpu_torch.data.device import DeviceCorpus
 from gifgan_tpu_torch.data.loader import PrefetchLoader
 from gifgan_tpu_torch.data.video import write_gif
+from gifgan_tpu_torch.models.prednet import PredNetConfig
 from gifgan_tpu_torch.ops.image import (denorm_u8, inverse_transform,
                                         merge_grid, to_uint8, write_png)
 from gifgan_tpu_torch.parallel import fsdp as fsdp_lib
@@ -60,6 +61,7 @@ from gifgan_tpu_torch.parallel import tp
 from gifgan_tpu_torch.parallel.dp import make_sharded_step, shard_train_state
 from gifgan_tpu_torch.parallel.sp import make_sp_step
 from gifgan_tpu_torch.train import gan
+from gifgan_tpu_torch.train import prednet as ptrain
 from gifgan_tpu_torch.train import recurrent as rtrain
 from gifgan_tpu_torch.train import vid as vid_train
 from gifgan_tpu_torch.train.controller import CollapseController
@@ -138,17 +140,17 @@ def cross_sample_z(rows: int, cols: int, z_in: int, z_out: int,
 
 def _write_video_grid(videos, cols: int, path: str,
                       fps: float = 25.0) -> None:
-    """(B, T, s, s, c) in [-1, 1] -> one GIF of the tiled videos; a short
+    """(B, T, h, w, c) in [-1, 1] -> one GIF of the tiled videos; a short
     last row is padded with black tiles."""
     u8 = denorm_u8(videos)
-    b, t, s, _, c = u8.shape
+    b, t, h, w, c = u8.shape
     cols = max(1, min(cols, b))
     rows = -(-b // cols)
     if rows * cols > b:
-        pad = np.zeros((rows * cols - b, t, s, s, c), np.uint8)
+        pad = np.zeros((rows * cols - b, t, h, w, c), np.uint8)
         u8 = np.concatenate([u8, pad], axis=0)
-    grid = u8.reshape(rows, cols, t, s, s, c)
-    grid = grid.transpose(2, 0, 3, 1, 4, 5).reshape(t, rows * s, cols * s, c)
+    grid = u8.reshape(rows, cols, t, h, w, c)
+    grid = grid.transpose(2, 0, 3, 1, 4, 5).reshape(t, rows * h, cols * w, c)
     if c == 1:
         grid = np.repeat(grid, 3, axis=-1)
     write_gif(path, grid, fps=fps)
@@ -537,6 +539,53 @@ def train_recurrent(clips_iter: Optional[Callable[[], Iterator]],
         loop.log.log(loop.step, metrics)
         if _crossed(prev, loop.step, tcfg.sample_every):
             preds = rtrain.predict(loop.ts, last["clips"], cfg)
+            _write_video_grid(preds * 2.0 - 1.0, min(4, preds.shape[0]),
+                              os.path.join(loop.run_dir,
+                                           f"pred_{loop.step:06d}.gif"))
+
+    batches = (
+        (lambda seed: _id_batches(corpus.n, tcfg.batch_size, seed))
+        if corpus is not None else loop.host_batches(clips_iter))
+    return loop.run(batches, None, len, step_chunk, on_chunk, 1,
+                    steps_limit)
+
+
+def train_prednet(clips_iter: Optional[Callable[[], Iterator]],
+                  cfg: PredNetConfig, tcfg: TrainConfig, resume: bool = True,
+                  steps_limit: Optional[int] = None,
+                  clips_u8: Optional[np.ndarray] = None,
+                  device=None) -> ptrain.PredNetTrainState:
+    """Train PredNet, one Adam update a batch; returns the final
+    PredNetTrainState.
+
+    clips_iter: (epoch_seed) -> iterator of (B, T, h, w, c) float [0, 1]
+    batches. clips_u8: instead, an (N, T, h, w, c) uint8 corpus uploaded
+    once and sampled on the device in [0, 1] (DeviceCorpus method "take");
+    the host ships ids only. Resumes from the run's latest checkpoint
+    when `resume`. Every sample_every steps a GIF grid of the step's
+    predictions, pred_<step>.gif."""
+    loop = _Loop(cfg, tcfg, ptrain.init_train_state, resume, device)
+    corpus = None
+    if clips_u8 is not None:
+        h, w = cfg.hw()
+        corpus = _corpus(clips_u8, (*clips_u8.shape[1:2], h, w, cfg.c_dim),
+                         "clips_u8 (N, T, h, w, c)", tcfg.batch_size,
+                         loop.device, method="take", out_range="unit")
+    last = {}
+
+    def step_chunk(ts, pending, z, gen):
+        (last["batch"],) = pending
+        if corpus is not None:
+            ids = torch.as_tensor(last["batch"], device=loop.device)
+            return ptrain.train_step_ids(ts, ids, corpus.sample, cfg, tcfg)
+        return ptrain.train_step(ts, last["batch"], cfg, tcfg)
+
+    def on_chunk(metrics, prev, epoch):
+        loop.log.log(loop.step, metrics)
+        if _crossed(prev, loop.step, tcfg.sample_every):
+            batch = last["batch"]
+            clips = corpus.sample(batch) if corpus is not None else batch
+            preds = ptrain.predict(loop.ts, clips, cfg)
             _write_video_grid(preds * 2.0 - 1.0, min(4, preds.shape[0]),
                               os.path.join(loop.run_dir,
                                            f"pred_{loop.step:06d}.gif"))

@@ -839,10 +839,11 @@ def test_train_vid_refuses_fsdp_with_tensor_parallel(tmp_path, monkeypatch):
 
 
 def test_the_port_has_26_of_the_27_commands(monkeypatch):
-    """Named when `bench` was the one missing; the port now has all 27."""
+    """Named when `bench` was the one missing; the port now has all 27,
+    and one of its own, `train-prednet`."""
     want = set(_jax_subparsers(monkeypatch))
     got = set(_choices(cli.build_parser()))
-    assert len(want) == 27 and got == want
+    assert len(want) == 27 and got == want | {"train-prednet"}
 
 
 @pytest.mark.parametrize("case", ["inspect_run", "inspect_tf", "downgrade"])

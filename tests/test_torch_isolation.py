@@ -55,6 +55,7 @@ def _entry_points():
     from gifgan_tpu_torch.core.rng import PRNGSequence
     from gifgan_tpu_torch.models import prednet, rnn_prototypes
     from gifgan_tpu_torch.train import gan, loops, recurrent, vid
+    from gifgan_tpu_torch.train import prednet as prednet_train
     from gifgan_tpu_torch.eval import fad, track_rate
     from gifgan_tpu_torch.track import flow_gather, haar
 
@@ -155,6 +156,12 @@ def _entry_points():
             TrainConfig()),
         "prednet_init": lambda: prednet.init(torch.Generator(),
                                              prednet.PredNetConfig()),
+        "prednet_init_train_state": lambda: prednet_train.init_train_state(
+            torch.Generator(), prednet.PredNetConfig(), TrainConfig()),
+        "train_prednet": lambda: loops.train_prednet(
+            None, prednet.PredNetConfig(), TrainConfig(run_dir="/none")),
+        "cli_train_prednet": lambda: cli.main(
+            ["train-prednet", "--run-dir", "/none", "--dataset-size", "1"]),
         "echo_rnn_init": lambda: rnn_prototypes.echo_rnn_init(
             torch.Generator()),
         "vector_echo_init": lambda: rnn_prototypes.vector_echo_init(
