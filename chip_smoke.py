@@ -44,6 +44,19 @@ Phases, one report line each, any failed check raising:
             (TRACK_BUCKET), the stabilizer's shape, all levels timed with
             one step and the one-pair bound; the median flow must recover
             the shifts;
+7a. lrelu   the leaky ReLU's two passes through their wrapper
+            (kernels/lrelu.py lrelu) and autograd, at the image D tap's
+            three shapes at 4,096 frames and at the vid-D's permuted
+            layout, bfloat16, against their plain versions, every bit (the
+            sign of a zero too), one launch each way; at the tap's shapes
+            each pass timed beside its bound (bytes at HBM_BYTES_PER_S), the
+            expression it replaces, torch.maximum(x, 0.2 * x), and the
+            library's F.leaky_relu: forward in CUDA graphs, the kernel's
+            backward in a graph and all three backwards through autograd
+            (CUDA events); where the library's backward differs in bits;
+            then the image D's forward at batch 16 under no_grad, paced by
+            the host, with the kernel and with the expression (host us a
+            call); the flagship train phase counts 24 + 18 launches a step;
 8. check    the port's model on the card against the same model on the CPU,
             float32 (TF32 off): the video GAN at a small config (a sample
             and a train step), and one image-DCGAN train step at the
@@ -283,6 +296,7 @@ from gifgan_tpu_torch.eval import survey as tsurvey
 from gifgan_tpu_torch.eval.track_rate import face_track_rate
 from gifgan_tpu_torch.kernels import _build
 from gifgan_tpu_torch.kernels import flow as kflow
+from gifgan_tpu_torch.kernels import lrelu as klrelu
 from gifgan_tpu_torch.kernels.flow_refine import (bilinear_windows, lk_refine,
                                                   lk_refine_plain)
 from gifgan_tpu_torch.kernels.gather import (gather_rows_scaled,
@@ -299,6 +313,7 @@ from gifgan_tpu_torch.models import dcgan, prednet, vid_dcgan
 from gifgan_tpu_torch.models import recurrent_image as rimage
 from gifgan_tpu_torch.models import rnn_prototypes as protos
 from gifgan_tpu_torch.models.dcgan import to_device
+from gifgan_tpu_torch.ops import nn as tnn
 from gifgan_tpu_torch.ops import quant
 from gifgan_tpu_torch.ops.image import denorm_u8, write_png
 from gifgan_tpu_torch.serve import sampler
@@ -398,6 +413,16 @@ EXPLORER_REPEATS, EXPLORER_TOL, EXPLORER_LOAD = 3, 1e-4, 8
 WEBCAM_REQUESTS, WEBCAM_PATHS, SURVEY_RATINGS = 2, ("smile", "frown"), 8
 # K1's chain floor: one row of this many bytes (one 16-byte vector)
 ROW_FLOOR_BYTES = 16
+# lrelu: the image D tap's lrelu inputs at 4,096 frames (NHWC), and the
+# vid-D's first conv3d output as conv3d hands it on, (B, C, T, H, W)
+# permuted to channels last; launches in one flagship train step (24
+# forward, 18 backward); the host-paced caller's batch and calls
+LRELU_SHAPES = {"h0": (4096, 32, 32, 64), "h1": (4096, 16, 16, 128),
+                "h2": (4096, 8, 8, 256), "vid_d_h1": (256, 256, 8, 4, 4)}
+LRELU_PERMUTED = ("vid_d_h1",)
+LRELU_PER_STEP = 24 + 18
+LRELU_HOST_BATCH, LRELU_HOST_CALLS = 16, 200
+LRELU_GRAPH_CALLS = 10
 # profile: summarize_trace's device total against key_averages(); the time
 # limits of bench (its flagship run takes about half a minute) and of a
 # profile_child
@@ -463,6 +488,13 @@ KERNELS = [{
     "replaces": "gifgan_tpu/track/haar_device.py:573",
     "counter": haar_stages,
     "path": "track",
+}, {
+    "name": "lrelu",
+    "route": "cuda",
+    "source": "gifgan_tpu_torch/csrc/lrelu.cu",
+    "replaces": "none",
+    "counter": klrelu.lrelu,
+    "path": "train",
 }]
 
 
@@ -1036,6 +1068,148 @@ def k3_cost(plan, ii, ii2, n_frames, flops):
             "bytes_ms": bytes_ms, "ops_ms": ops_ms, "no_exit_ms": no_exit_ms,
             "l1_ms": l1_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _lrelu_bits(got, want):
+    """Equal bit for bit, NaN where NaN: the values, and the sign of each
+    zero."""
+    nan = torch.isnan(got)
+    if not torch.equal(nan, torch.isnan(want)):
+        return False
+    got, want = got[~nan], want[~nan]
+    return torch.equal(got, want) and torch.equal(torch.signbit(got),
+                                                  torch.signbit(want))
+
+
+def phase_lrelu(seed):
+    """The leaky ReLU through its wrapper (kernels/lrelu.py lrelu, what
+    ops/nn.py lrelu calls on the card) at the tap's shapes and at the
+    vid-D's permuted layout: both passes through autograd against their
+    plain versions, bit for bit, one launch each way, the output in x's
+    strides. At the tap's shapes each pass is timed beside its bound, the
+    expression it replaces and the library's one call, F.leaky_relu;
+    then a host-paced caller that runs forward only, the image D at a
+    small batch, with the kernel and with the expression. Returns the
+    kernels line's row."""
+    bwd = klrelu._kernels()[1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draw = lambda shape: torch.randn(shape, generator=gen, device="cuda",
+                                     dtype=torch.bfloat16)
+    expression = lambda x: torch.maximum(x, 0.2 * x)
+    library = lambda x: F.leaky_relu(x, 0.2)
+    grad_ms = lambda y, x, g: event_ms(
+        lambda: torch.autograd.grad(y, x, g, retain_graph=True), [()],
+        warmup=3, reps=20)
+    rows = {}
+    for case, shape in LRELU_SHAPES.items():
+        x, g = draw(shape), draw(shape)
+        if case in LRELU_PERMUTED:
+            x, g = (t.permute(0, 2, 3, 4, 1) for t in (x, g))
+        xr = x.detach().requires_grad_()
+        before = klrelu.lrelu.launches
+        y = klrelu.lrelu(xr, 0.2)
+        y.backward(g)
+        check(klrelu.lrelu.launches == before + 2,
+              f"lrelu at {case}: one launch each way")
+        check(y.stride() == x.stride(), f"lrelu at {case} keeps x's strides")
+        for got, want, what in (
+                (y.detach(), klrelu.lrelu_plain(x), "forward"),
+                (xr.grad, klrelu.lrelu_backward_plain(x, g), "backward")):
+            check(_lrelu_bits(got, want),
+                  f"lrelu {what} at {case} equals its plain version")
+        if case in LRELU_PERMUTED:
+            say("lrelu", case=case, shape="x".join(map(str, x.shape)),
+                strides=",".join(map(str, x.stride())), bits="equal")
+            del x, g, xr, y
+            continue
+        nbytes = x.numel() * x.element_size()
+        dx = torch.empty_like(x)
+        yk, ye, yl = (f(xr) for f in (lambda t: klrelu.lrelu(t, 0.2),
+                                      expression, library))
+        # graphs of LRELU_GRAPH_CALLS calls; the kernel before and after
+        # the others, its time the lesser (the first graph of a shape can
+        # read slow)
+        calls = [()] * LRELU_GRAPH_CALLS
+        fwd_ms = lambda f: graph_ms(lambda: f(x), calls)
+        kernel_bwd = lambda: graph_ms(
+            lambda: klrelu._launch(bwd, 0.2, x, g, dx), calls)
+        first = fwd_ms(lambda t: klrelu.lrelu(t, 0.2)), kernel_bwd()
+        row = {
+            "bound_fwd_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+            "plain_fwd_ms": fwd_ms(expression),
+            "library_fwd_ms": fwd_ms(library),
+            "bound_bwd_ms": 3 * nbytes / HBM_BYTES_PER_S * 1e3,
+            "autograd_bwd_ms": grad_ms(yk, xr, g),
+            "plain_bwd_ms": grad_ms(ye, xr, g),
+            "library_bwd_ms": grad_ms(yl, xr, g)}
+        row["kernel_fwd_ms"] = min(first[0], fwd_ms(
+            lambda t: klrelu.lrelu(t, 0.2)))
+        row["kernel_bwd_ms"] = min(first[1], kernel_bwd())
+        row["fwd_share"] = row["bound_fwd_ms"] / row["kernel_fwd_ms"]
+        row["bwd_share"] = row["bound_bwd_ms"] / row["kernel_bwd_ms"]
+        say("lrelu", case=case, shape="x".join(map(str, shape)),
+            **{k: f"{v:.5f}" for k, v in row.items()})
+        rows[case] = row
+        del x, g, xr, y, dx, yk, ye, yl
+        torch.cuda.empty_cache()
+
+    # the library's call on the values where a choice of rule shows
+    x = torch.tensor([0.0, -0.0, 1e-40, -1e-40, 1.0, -1.0, float("nan")],
+                     device="cuda").to(torch.bfloat16).requires_grad_()
+    g = torch.full_like(x, 1.0)
+    (dx_lib,) = torch.autograd.grad(library(x), x, g)
+    dx_plain = klrelu.lrelu_backward_plain(x.detach(), g)
+    library_fwd_same = _lrelu_bits(library(x.detach()),
+                                   klrelu.lrelu_plain(x.detach()))
+    differs = [f"{v}:{a}/{b}" for v, a, b in zip(
+        x.detach().float().tolist(), dx_lib.float().tolist(),
+        dx_plain.float().tolist()) if not _lrelu_bits(
+            torch.tensor(a), torch.tensor(b))]
+
+    # a host-paced forward-only caller: the image D at a small batch
+    img = flagship()[0].image_gan
+    params, state = (dcgan.to_device(t, "cuda") for t in
+                     dcgan.init_discriminator(
+                         torch.Generator().manual_seed(seed), img))
+    imgs = torch.rand(LRELU_HOST_BATCH, img.output_size, img.output_size,
+                      img.c_dim, device="cuda", generator=gen) * 2 - 1
+    kernel_lrelu, host_us = tnn.lrelu, {"kernel": [], "expression": []}
+    try:
+        with torch.no_grad():
+            for _ in range(3):
+                for name, fn in (("kernel", kernel_lrelu),
+                                 ("expression", lambda t, leak=0.2:
+                                  torch.maximum(t, leak * t))):
+                    tnn.lrelu = fn
+                    run = lambda: dcgan.discriminator(params, state, imgs,
+                                                      img, False)
+                    for _ in range(10):
+                        run()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    for _ in range(LRELU_HOST_CALLS):
+                        run()
+                    torch.cuda.synchronize()
+                    host_us[name].append((time.perf_counter() - t) * 1e6
+                                         / LRELU_HOST_CALLS)
+    finally:
+        tnn.lrelu = kernel_lrelu
+    host = {k: float(np.median(v)) for k, v in host_us.items()}
+    say("lrelu", case="library_and_host", library_fwd_same_bits=
+        library_fwd_same, library_bwd_differs_at="|".join(differs) or "none",
+        host_paced_d_forward_batch=LRELU_HOST_BATCH,
+        host_us_per_call_kernel=",".join(f"{u:.1f}"
+                                         for u in host_us["kernel"]),
+        host_us_per_call_expression=",".join(
+            f"{u:.1f}" for u in host_us["expression"]))
+    h0 = rows["h0"]
+    return {"max_abs_err": 0.0, "ms": h0["kernel_fwd_ms"],
+            "plain_ms": h0["plain_fwd_ms"], "bound_ms": h0["bound_fwd_ms"],
+            "bound_by": "bytes", "library_ms": h0["library_fwd_ms"],
+            "library_call": "torch.nn.functional.leaky_relu(x, 0.2)",
+            "library_fwd_same_bits": library_fwd_same,
+            "library_bwd_differs_at": differs, "by_shape": rows,
+            "host_paced_d_forward_us": host}
 
 
 def phase_k3(xml, seed):
@@ -2516,8 +2690,12 @@ def profile_step(name, step, top=15):
             wall = (time.perf_counter() - t) * 1e3
         s = tprofile.summarize_trace(log_dir, top=10 ** 9)
         lost = _launches_without_device_row(log_dir)
+    # a span's record_function range comes back as a device row too (a
+    # user annotation over its kernels' time): torch's own table leaves
+    # those out of its device total, and so does this
     rows = [e for e in p.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
             and _self_device_us(e) > 0]
     kav_us = sum(_self_device_us(e) for e in rows)
     calls = collections.Counter()
@@ -2622,6 +2800,8 @@ def phase_train(ts, cfg, tcfg, corpus, seed):
     launches = read_counts()
     check(launches["gather_rows_scaled"] == K_STEPS,
           f"K1 launched once a step: {launches}")
+    check(launches["lrelu"] == K_STEPS * LRELU_PER_STEP,
+          f"lrelu launched {LRELU_PER_STEP} times a step: {launches}")
     for k, v in m.items():
         check(v.shape == (K_STEPS,) and bool(torch.isfinite(v).all()),
               f"metric {k} finite over the chunk")
@@ -4431,6 +4611,7 @@ def main(argv=None) -> int:
                                                                args.seed)
     measured.update({"resize_normalize": phase_k2(args.seed),
                      "lk_refine": phase_k4(args.seed)})
+    measured["lrelu"] = phase_lrelu(args.seed)
     cascade_dir = tempfile.TemporaryDirectory()
     t = time.perf_counter()
     xml = synthetic_cascade.write_cascade(

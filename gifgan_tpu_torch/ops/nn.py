@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from gifgan_tpu_torch.core import profile
+from gifgan_tpu_torch.kernels import lrelu as lrelu_kernel
 from gifgan_tpu_torch.parallel import collectives
 
 Tensor = torch.Tensor
@@ -405,7 +406,14 @@ def bn_after(layer: Dict, bn_params: Dict, bn_state: Dict, train: bool,
 # ---------------------------------------------------------------------------
 
 def lrelu(x: Tensor, leak: float = 0.2) -> Tensor:
-    return torch.maximum(x, leak * x)
+    """max(x, leak * x). A CUDA tensor takes one hand-written pass each
+    way (kernels/lrelu.py), with the expression's numbers and gradient bit
+    for bit, recorded as an `nn.lrelu` span inside an open span; any
+    other tensor takes the expression."""
+    if x.device.type != "cuda":
+        return torch.maximum(x, leak * x)
+    with profile.span("nn.lrelu", inner=True):
+        return lrelu_kernel.lrelu(x, leak)
 
 
 def add_noise(gen: Optional[torch.Generator], x: Tensor, stddev) -> Tensor:
